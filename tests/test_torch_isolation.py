@@ -1,0 +1,79 @@
+"""u2seg_torch stands alone: it imports neither JAX nor the JAX package,
+and its entry points refuse to fall back to the CPU silently.
+
+"Names" below means imports: every ``import`` / ``from ... import`` and every
+``importlib.import_module`` / ``__import__`` call with a literal module name,
+found by parsing the sources. (Docstrings may cite the JAX package's files:
+the kernel's note names the TPU kernel it replaces.)
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "u2seg_tpu")
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "u2seg_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = _port_sources()
+    assert len(files) > 15 and os.path.join(ROOT, "chip_smoke.py") in files
+    bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
+           if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import u2seg_torch, u2seg_torch.entry\n"
+        "for m in pkgutil.walk_packages(u2seg_torch.__path__, 'u2seg_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in %r]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from u2seg_torch.config import Config
+    from u2seg_torch.entry import entry
+    from u2seg_torch.models.build import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()

@@ -1,0 +1,8 @@
+"""u2seg_torch: the PyTorch/CUDA port of u2seg_tpu.
+
+A package of its own beside the JAX package (which stays the reference): the
+same config tree and YAML files, detectron2 module names, and the JAX
+package's layouts at public functions. It imports torch and numpy, never
+JAX or anything of ``u2seg_tpu``. The multilevel FPN ROIAlign is a
+hand-written CUDA kernel (``csrc/roi_align_ml.cu``) built at first use.
+"""
