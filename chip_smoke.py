@@ -1,24 +1,40 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,serve,cpu,train,train_cpu]
 
-Phases (each prints one or more lines; any failure raises and exits non-zero):
+Phases (each prints one or more lines; any failure raises and exits non-zero;
+with no ``--phases`` all of them run, which is what the last line vouches for):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: the port's CUDA kernels compiled from ``u2seg_torch/csrc`` (nvcc,
    sm_90a), one nvcc per source, all started together;
-3. kernel vs plain: the multilevel ROIAlign kernel against its plain PyTorch
-   twin on the card, at main-path shapes (p2-p5 of an 800x1216 image, C=256;
-   R=1000 at s=7, R=100 at s=14), f32 with TF32 off at 1e-4 and bf16 at the
-   AMP tolerance (rtol 0.05, atol 0.03); its time, the twin's, and the bound;
-4. the slice: the default Config() at full width (R50-FPN, 3-stage cascade
-   over 800 classes, masks, 28 sem-seg classes, bf16) with seeded weights
-   serves 4 requests (3 at 800x1216, 1 at 512x832, b=1); the kernel's launch
+3. k1, kernel vs plain: the multilevel ROIAlign forward kernel against its
+   plain PyTorch twin on the card, at the serving path's shapes (p2-p5 of an
+   800x1216 image, C=256; R=1000 at s=7, R=100 at s=14), f32 with TF32 off
+   at 1e-4 and bf16 at the AMP tolerance (rtol 0.05, atol 0.03); its time,
+   the twin's, and the bound;
+   k3: the backward kernel against autograd of the twin at the train path's
+   shapes (b=2 at 800x1344; R=1024 at s=7, R=256 at s=14; f32 and bf16
+   levels, f32 cotangent), the budget-edge boxes and R=0 included;
+4. serve: the default Config() at full width (R50-FPN, 3-stage cascade over
+   800 classes, masks, 28 sem-seg classes, bf16) with seeded weights serves 4
+   requests (3 at 800x1216, 1 at 512x832, b=1); the forward kernel's launch
    count must grow by 4 per forward; then torch.profiler over warm forwards
    of each shape (device busy share, top kernels). Before it,
    ``u2seg_torch.entry.entry()`` (the flagship forward at 512x832) runs once;
-5. card vs CPU: the same forward at 512x832 in f32 (TF32 off) with
-   pooler_impl="pallas" on both devices (the CPU runs the kernel's twin).
+5. cpu: the same forward at 512x832 in f32 (TF32 off) with
+   pooler_impl="pallas" on both devices (the CPU runs the kernel's twin);
+6. train: ``create_train_state`` + ``make_train_step`` at full width, b=2 at
+   800x1344, 100 gt slots with 20 valid boxes and 64x64 mask patches, bf16:
+   2 warm-up steps, then 4 steps with the launch counts set to 0 before them:
+   finite losses with the 10 expected keys, finite non-zero gradients on the
+   backbone, the RPN, each cascade stage, the mask and sem-seg heads, 4
+   forward + 4 backward kernel launches per step, parameters changed; step
+   time, peak memory, and torch.profiler's busy share and launches per step;
+7. train_cpu: one train step of the tiny config in f32 (TF32 off) on the card
+   (kernels) against the CPU (plain versions), with sampling sizes that take
+   every candidate so that no random draw matters: losses, gradients and the
+   updated BN statistics.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -187,6 +203,111 @@ def phase_kernel(dev):
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP); library call: none (no single PyTorch op "
             f"computes this pooler; torchvision is not installed)")
+        results[s] = rec
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the backward kernel against autograd of the plain version
+# ---------------------------------------------------------------------------
+
+TRAIN_HW = (800, 1344)       # the training bucket, per-device batch 2
+
+
+def phase_kernel_backward(dev):
+    """K3 at the train step's shapes: b=2 at 800x1344, p2-p5 (+ the virtual
+    level), C=256; R=1024 at s=7 (one cascade stage: 2 x 512 samples) and
+    R=256 at s=14 (the mask branch: 2 x 128 foreground slots). The plain
+    version is autograd of ``multilevel_roi_align_ref`` on the card.
+
+    Tolerances. f32 levels (TF32 off): 1e-4 * max(1, max|plain grad|) -- the
+    kernel sums with atomics, whose order changes from run to run, the plain
+    version with index_put. bf16 levels: both accumulate in f32 and round
+    once to bf16, so they differ by a bf16 rounding of nearly equal sums:
+    rtol 0.05, atol 0.03 * max(1, max|plain grad|) / 8."""
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (h, w), c, b = TRAIN_HW, 256, 2
+    strides = (4, 8, 16, 32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.RandomState(3)
+    base = [torch.randn(b, h // st, w // st, c, generator=gen, device=dev)
+            for st in strides]
+    results = {}
+    for s, n in ((7, 1024), (14, 256)):
+        edge = boundary_boxes(h, w)
+        boxes = torch.cat([edge, random_proposals(rng, n - len(edge), h, w)]).to(dev)
+        bidx = torch.from_numpy(rng.randint(0, b, n).astype(np.int32)).to(dev)
+        g = torch.randn(n, s, s, c, generator=gen, device=dev)
+        rec = {"s": s, "R": n}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            feats_k = [f.to(dtype).clone().requires_grad_() for f in base]
+            feats_p = [f.to(dtype).clone().requires_grad_() for f in base]
+            before = rap.multilevel_roi_align_backward.launches
+            out_k = rap.multilevel_roi_align_train(feats_k, boxes, bidx, s, strides)
+            got = torch.autograd.grad(out_k, feats_k, g)
+            if rap.multilevel_roi_align_backward.launches != before + 1:
+                raise AssertionError("the train pooler's backward did not launch K3")
+            out_p = rap.multilevel_roi_align_ref(feats_p, boxes, bidx, s, strides)
+            ref = torch.autograd.grad(out_p, feats_p, g)
+            torch.cuda.synchronize()
+            fwd_err = float((out_k - out_p).detach().abs().max())
+            errs, scales, ok = [], [], out_k.dtype == torch.float32
+            for gk, gp in zip(got, ref):
+                ok = ok and gk.dtype == dtype and gk.shape == gp.shape
+                err = (gk.float() - gp.float()).abs()
+                scale = max(1.0, float(gp.float().abs().max()))
+                errs.append(float(err.max()))
+                scales.append(scale)
+                if dtype == torch.float32:
+                    ok = ok and bool((err <= F32_TOL * scale).all())
+                else:
+                    ok = ok and bool((err <= AMP_ATOL * scale / 8
+                                      + AMP_RTOL * gp.float().abs()).all())
+            rec[f"max_abs_err_{name}"] = max(errs)
+            rec[f"grad_max_{name}"] = max(scales)
+            rec[f"level_err_{name}"] = errs
+            log(f"[k3] s={s} R={n} {name}: max|kernel-plain| per level p2..p5 "
+                f"{', '.join(f'{e:.2e}' for e in errs)} (max|plain grad| {max(scales):.2f}; "
+                f"forward {fwd_err:.2e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 disagrees with its plain version ({name}, s={s})")
+        # R = 0: nothing to add, zero gradients of the right shapes
+        feats0 = [f.clone().requires_grad_() for f in base]
+        out0 = rap.multilevel_roi_align_train(
+            feats0, boxes[:0], bidx[:0], s, strides)
+        g0 = torch.autograd.grad(out0, feats0, g[:0])
+        if out0.shape != (0, s, s, c) or any(float(t.abs().max()) != 0 for t in g0):
+            raise AssertionError("K3 with R=0 did not give zero gradients")
+        # timing at the train path's dtypes: bf16 levels, f32 cotangent
+        feats = [f.to(torch.bfloat16) for f in base]
+        ext, st_ext = rap._append_virtual_level(feats, strides)
+        fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
+        ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f,
+                                  [tuple(f.shape) for f in ext], s, 2)
+        rec["ms"] = cuda_ms(lambda: rap.multilevel_roi_align_backward(ba), iters=20)
+        rec["fwd_ms"] = cuda_ms(lambda: rap.launch(fa), iters=20)
+        feats_p = [f.requires_grad_() for f in feats]
+        out_p = rap.multilevel_roi_align_ref(feats_p, boxes, bidx, s, strides)
+        rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out_p, feats_p, g, retain_graph=True), iters=3, warmup=1)
+        del out_p
+        _, flops = work_of(rap, feats, boxes, bidx, s, strides, 2, 4)
+        nbytes = (g.numel() * 4 + n * 32
+                  + sum(t.numel() for t in ba.grads) * 4)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[k3] s={s} R={n} timing (bf16 levels, f32 cotangent): zero-fill + kernel "
+            f"{rec['ms']:.4f} ms, plain (autograd of the twin) {rec['plain_ms']:.3f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB = "
+            f"cotangent read once + every f32 gradient cell written once, "
+            f"{flops / 1e9:.2f} GFLOP); forward kernel at these shapes (f32 out) "
+            f"{rec['fwd_ms']:.4f} ms; library call: none (no single PyTorch op "
+            f"computes the window transpose and its scatter)")
         results[s] = rec
     return results
 
@@ -396,10 +517,272 @@ def phase_cpu_parity(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6 / 7: the training step
+# ---------------------------------------------------------------------------
+
+LOSS_KEYS = (["loss_sem_seg", "loss_rpn_cls", "loss_rpn_loc", "loss_mask"]
+             + [f"loss_{k}_stage{i}" for i in range(3) for k in ("cls", "box_reg")])
+GRAD_GROUPS = ["backbone.bottom_up", "backbone.fpn_", "proposal_generator",
+               "roi_heads.box_head.0", "roi_heads.box_predictor.0",
+               "roi_heads.box_head.1", "roi_heads.box_predictor.1",
+               "roi_heads.box_head.2", "roi_heads.box_predictor.2",
+               "roi_heads.mask_head", "sem_seg_head"]
+
+
+def train_batch(cfg, b: int, h: int, w: int, n_real: int = 20, patch: int = 64):
+    """A numpy-drawn training batch at the recipe's shapes: ``max_gt_instances``
+    slots of which ``n_real`` hold a box, a class and a mask patch."""
+    from u2seg_torch.engine.trainer import Batch
+    from u2seg_torch.structures.instances import GtInstances
+
+    rng = np.random.RandomState(0)
+    g = cfg.model.max_gt_instances
+    images = rng.rand(b, h, w, 3).astype(np.float32) * 255
+    xy = rng.rand(b, g, 2) * np.array([w / 2, h / 2])
+    wh = rng.rand(b, g, 2) * 200 + 16
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    valid = np.zeros((b, g), bool)
+    valid[:, :n_real] = True
+    classes = rng.randint(0, cfg.model.roi_heads.num_classes, (b, g)).astype(np.int32)
+    masks = (rng.rand(b, g, patch, patch) > 0.4).astype(np.float32)
+    sem = rng.randint(0, cfg.model.sem_seg_head.num_classes, (b, h, w)).astype(np.int32)
+    gt = GtInstances(torch.from_numpy(boxes), torch.from_numpy(classes),
+                     torch.from_numpy(valid), torch.from_numpy(masks))
+    return Batch(torch.from_numpy(images),
+                 torch.tensor([[h, w]] * b, dtype=torch.int32), gt,
+                 torch.from_numpy(sem))
+
+
+def group_grad_norms(model):
+    out = {}
+    for prefix in GRAD_GROUPS:
+        grads = [p.grad.float() for k, p in model.named_parameters()
+                 if k.startswith(prefix) and p.grad is not None]
+        if not grads:
+            raise AssertionError(f"no gradient on {prefix}")
+        out[prefix] = float(torch.sqrt(sum((g ** 2).sum() for g in grads)))
+    return out
+
+
+def phase_train(dev, steps: int = 4, warmup: int = 2):
+    from torch.profiler import ProfilerActivity, profile
+
+    from u2seg_torch.config import Config
+    from u2seg_torch.engine.trainer import create_train_state, make_train_step
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    cfg = Config()
+    (h, w), b = TRAIN_HW, 2
+    state = create_train_state(cfg, device=dev, seed=0)
+    model = state.model
+    step = make_train_step(model, state.optimizer)
+    batch = train_batch(cfg, b, h, w).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    probes = {k: p.detach().clone() for k, p in model.named_parameters()
+              if k.endswith(("stem.conv1.weight", "rpn_head.conv.weight",
+                             "box_head.2.fc1.weight", "mask_head.deconv.weight",
+                             "sem_seg_head.predictor.weight",
+                             "res4.0.conv1.norm.bias"))}
+    bn0 = model.backbone.bottom_up.stem.conv1.norm.running_mean.clone()
+    for _ in range(warmup):
+        step(batch, gen)
+    torch.cuda.synchronize()
+
+    rap.multilevel_roi_align_kernel.launches = 0          # the main path starts
+    rap.multilevel_roi_align_backward.launches = 0
+    rows = []
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        metrics = {k: float(v) for k, v in metrics.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        norms = group_grad_norms(model)
+        ok = (sorted(metrics) == sorted(LOSS_KEYS + ["total_loss"])
+              and all(np.isfinite(v) for v in metrics.values())
+              and all(np.isfinite(v) and v > 0 for v in norms.values()))
+        log(f"[train] step {i}: {ms:.1f} ms, total_loss {metrics['total_loss']:.4f} ("
+            + ", ".join(f"{k[5:]} {metrics[k]:.4f}" for k in LOSS_KEYS)
+            + f"), peak memory {peak:.0f} MiB {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train step {i}: losses {metrics}, gradient norms {norms}")
+        rows.append(dict(ms=ms, peak_mib=peak, losses=metrics, grad_norms=norms))
+    fwd = rap.multilevel_roi_align_kernel.launches        # the main path ends
+    bwd = rap.multilevel_roi_align_backward.launches
+    log("[train] clipped gradient norms of the last step: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rows[-1]["grad_norms"].items()))
+    log(f"[train] kernel launches over {steps} steps: forward {fwd}, backward {bwd}")
+    if fwd != 4 * steps or bwd != 4 * steps:
+        raise AssertionError(f"expected {4 * steps} + {4 * steps} launches, got {fwd} + {bwd}")
+    moved = {k: float((p.detach() - probes[k]).abs().max())
+             for k, p in model.named_parameters() if k in probes}
+    bn_moved = float((model.backbone.bottom_up.stem.conv1.norm.running_mean - bn0).abs().max())
+    log("[train] parameters changed (max|delta| after "
+        f"{warmup + steps} steps): " + ", ".join(f"{k} {v:.2e}" for k, v in moved.items())
+        + f"; stem BN running_mean moved {bn_moved:.2e}; optimizer count "
+        f"{state.step}, lr {state.optimizer.param_groups[0]['lr']:.3e}")
+    if not (len(moved) == 6 and all(v > 0 for v in moved.values()) and bn_moved > 0):
+        raise AssertionError(f"parameters did not change: {moved}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    kernels = [e for e in prof.key_averages()          # not the step annotation
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Optimizer.")]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    n_launch = sum(e.count for e in kernels) / 2
+    log(f"[train] profile of 2 steps: wall {wall_ms:.1f} ms/step, device kernels "
+        f"{dev_ms:.1f} ms/step -> busy {dev_ms / wall_ms:.3f}, idle "
+        f"{1 - dev_ms / wall_ms:.3f}; {n_launch:.0f} kernel launches per step")
+    top = []
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3 / 2
+        top.append(dict(name=e.key[:90], ms=ms, count=e.count / 2))
+        log(f"[train]   {ms:8.3f} ms  x{e.count / 2:5.0f}  {e.key[:90]}")
+    ours = {e.key: e.self_device_time_total / 1e3 / 2 for e in kernels
+            if "roi_align_ml" in e.key}
+    log(f"[train] the port's kernels in that profile (ms/step): {ours}")
+    return dict(steps=rows, forward_launches=fwd, backward_launches=bwd,
+                profile=dict(wall_ms=wall_ms, device_ms=dev_ms,
+                             launches_per_step=n_launch, top=top, ours=ours))
+
+
+def phase_train_cpu_parity(dev):
+    """The train step of the tiny config on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batch, f32 with TF32 off.
+
+    (a) The heads on the SAME features (the CPU trunk's, copied to the card):
+    sem-seg head, RPN, cascade and mask heads, both poolers' kernels against
+    their plain versions inside the real train graph. Losses rtol 1e-4; the
+    gradients w.r.t. the five feature maps (what the backward kernel
+    produces, summed with the other heads' shares) <= 1e-3 * max|grad| each;
+    over the feature maps and all 65 head parameters together a relative L2
+    error <= 1e-4, and each tensor <= 5e-2 * max|grad|: the mask head's
+    gradients are ~1e-6 (its predictor starts at 0.001) and a handful of its
+    ~1e6 ReLU inputs lie within f32 noise of 0, opening on one device only.
+    The levels are 16x16 down to 1x1 here, narrower than the kernels' 32 x 40
+    window.
+    (b) The whole step: each loss rtol 1e-3; BN running statistics rtol 1e-2
+    with atol 1e-3 * max; the gradients' relative L2 error over all
+    parameters <= 0.15. The two devices sum convolutions in other orders;
+    train-mode BatchNorm over 8 samples (2 x 2 positions x 2 images at res5)
+    amplifies that from layer to layer of the R50 trunk, and a ReLU input
+    within that noise of 0 opens on one device only, so trunk gradients
+    differ by percents while the losses agree to 1e-5: (b) can only show
+    that nothing is grossly off, (a) is the sharp check."""
+    from u2seg_torch.engine.trainer import create_train_state
+    from u2seg_torch.testing import tiny_batch, tiny_spmd_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_spmd_config()
+    m = cfg.model
+    m.roi_heads.pooler_impl = "pallas"
+    # every candidate is sampled, so the two devices' random keys do not matter
+    m.rpn.batch_size_per_image, m.rpn.positive_fraction = 2048, 0.5
+    m.roi_heads.batch_size_per_image, m.roi_heads.positive_fraction = 256, 0.5
+    batch = tiny_batch(np.random.RandomState(0), b=2)
+    # uniform mask patches: resampled 0/1 patches land exactly on the 0.5
+    # target threshold, where the last f32 bit would decide per device
+    batch.gt.masks = torch.from_numpy(
+        np.random.RandomState(1).rand(*batch.gt.masks.shape).astype(np.float32))
+    models = {name: create_train_state(cfg, device=device, seed=0).model
+              for name, device in (("cpu", "cpu"), ("gpu", dev))}
+
+    def grads_of(losses, model, extra=()):
+        model.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        out = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+               if p.grad is not None}
+        out.update({k: v.grad.detach().cpu() for k, v in extra})
+        return {k: float(v.detach()) for k, v in losses.items()}, out
+
+    def compare(c, g):
+        errs = {k: float((g[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                for k, v in c.items()}
+        num = sum(float(((g[k] - v) ** 2).sum()) for k, v in c.items())
+        den = sum(float((v ** 2).sum()) for v in c.values())
+        worst = max(errs, key=errs.get)
+        return dict(l2=(num / den) ** 0.5, worst=errs[worst], worst_name=worst,
+                    worst_feature=max([e for k, e in errs.items()
+                                       if k.startswith("d/d")], default=0.0),
+                    tight_share=sum(e <= 1e-3 for e in errs.values()) / len(errs),
+                    n=len(errs))
+
+    def loss_err(c, g):
+        return max(abs(g[k] / c[k] - 1) for k in LOSS_KEYS)
+
+    # (a) the heads on the same features
+    with torch.no_grad():
+        feats = models["cpu"].features(batch.images)
+    head = {}
+    for name, model in models.items():
+        device = next(model.parameters()).device
+        bt = batch.to(device)
+        tf = {k: v.detach().clone().to(device).requires_grad_() for k, v in feats.items()}
+        losses = model.losses_from_features(
+            tf, bt.image_sizes, bt.gt, bt.sem_seg,
+            torch.Generator(device=device).manual_seed(0))
+        head[name] = grads_of(losses, model, [(f"d/d{k}", v) for k, v in tf.items()])
+    res = {"head_loss_err": loss_err(head["cpu"][0], head["gpu"][0]),
+           "head": compare(head["cpu"][1], head["gpu"][1])}
+    h = res["head"]
+    ok_a = (res["head_loss_err"] <= 1e-4 and h["worst_feature"] <= 1e-3
+            and h["l2"] <= 1e-4 and h["worst"] <= 5e-2 and h["n"] == 70)
+    log(f"[train-cpu] (a) heads on the same features, tiny config f32, pooler=pallas: "
+        f"losses max|gpu/cpu-1| {res['head_loss_err']:.2e} (tol 1e-4); gradients of the "
+        f"5 feature maps: worst {h['worst_feature']:.2e} of max|grad| (tol 1e-3); of all "
+        f"{h['n']} tensors (+ 65 head parameters): relative L2 error {h['l2']:.2e} "
+        f"(tol 1e-4), worst {h['worst']:.2e} ({h['worst_name']}; tol 5e-2), "
+        f"{h['tight_share']:.1%} within 1e-3 {'ok' if ok_a else 'FAIL'}")
+
+    # (b) the whole step
+    whole = {}
+    sd0 = {k: v.clone() for k, v in models["cpu"].state_dict().items()}
+    for name, model in models.items():
+        device = next(model.parameters()).device
+        model.load_state_dict(sd0)
+        bt = batch.to(device)
+        losses = model(bt.images, bt.image_sizes, gt=bt.gt, sem_seg_gt=bt.sem_seg,
+                       train=True, generator=torch.Generator(device=device).manual_seed(0))
+        whole[name] = grads_of(losses, model) + (
+            {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if "running_" in k},)
+    res["loss_err"] = loss_err(whole["cpu"][0], whole["gpu"][0])
+    res["stats_ok"] = all(
+        bool(torch.isclose(whole["gpu"][2][k], v, rtol=1e-2,
+                           atol=1e-3 * float(v.abs().max())).all())
+        for k, v in whole["cpu"][2].items())
+    res["whole"] = w = compare(whole["cpu"][1], whole["gpu"][1])
+    ok_b = res["loss_err"] <= 1e-3 and res["stats_ok"] and w["l2"] <= 0.15
+    log(f"[train-cpu] (b) whole step: losses max|gpu/cpu-1| {res['loss_err']:.2e} "
+        f"(tol 1e-3); BN running stats agree {res['stats_ok']} (rtol 1e-2); gradients of "
+        f"{w['n']} tensors: relative L2 error {w['l2']:.2e} (tol 0.15), "
+        f"{w['tight_share']:.1%} within 1e-3 * max|grad|, worst {w['worst']:.2e} "
+        f"({w['worst_name']}) {'ok' if ok_b else 'FAIL'}")
+    if not (ok_a and ok_b):
+        raise AssertionError(f"card and CPU train steps disagree: {res}")
+    return res
+
+
 def main():
+    all_phases = ["k1", "k3", "serve", "cpu", "train", "train_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
+    ap.add_argument("--phases", default=",".join(all_phases),
+                    help="comma-separated subset of %(default)s")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(all_phases):
+        ap.error(f"unknown phase in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -410,9 +793,9 @@ def main():
     log(f"[device] {smi} | {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda} | count "
         f"{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     paths = _cuda.build(["roi_align_ml"])
-    build_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t_start
     log(f"[build] {len(paths)} kernel library built in {build_s:.1f} s")
     for name, p in paths.items():
         if os.path.exists(p + ".log"):
@@ -421,34 +804,64 @@ def main():
                     if "registers" in line or "Compiling entry" in line:
                         log(f"[build] {name}: {line.strip()}")
 
-    kern = phase_kernel(dev)
-    rows, launches, model, reqs = phase_slice(dev)
-    prof = [phase_profile(model, reqs[0]), phase_profile(model, reqs[-1])]
-    del model
-    parity = phase_cpu_parity(dev)
+    report = {"smi": smi, "build_s": build_s, "phases": phases}
+    if "k1" in phases:
+        report["kernel"] = phase_kernel(dev)
+    if "k3" in phases:
+        report["kernel_backward"] = phase_kernel_backward(dev)
+    if "serve" in phases:
+        rows, launches, model, reqs = phase_slice(dev)
+        report.update(slice=rows, launches=launches, profile=[
+            phase_profile(model, reqs[0]), phase_profile(model, reqs[-1])])
+        del model, reqs
+    if "cpu" in phases:
+        report["cpu_parity"] = phase_cpu_parity(dev)
+    if "train" in phases:
+        torch.cuda.empty_cache()
+        report["train"] = phase_train(dev)
+        torch.cuda.empty_cache()
+    if "train_cpu" in phases:
+        report["train_cpu_parity"] = phase_train_cpu_parity(dev)
+    log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
-    main_rec = kern[7]
-    record = {"kernels": [{
-        "name": "roi_align_ml",
-        "route": "cuda",
-        "source": "u2seg_torch/csrc/roi_align_ml.cu",
-        "replaces": "u2seg_tpu/ops/roi_align_pallas.py:435",
-        "launches": launches,
-        "max_abs_err": max(kern[s]["max_abs_err_f32"] for s in kern),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": None,
-    }]}
+    if phases == all_phases:
+        k1, k3, tr = report["kernel"], report["kernel_backward"], report["train"]
+        fwd_launches = report["launches"] + tr["forward_launches"]
+        if min(report["launches"], tr["forward_launches"], tr["backward_launches"]) < 1:
+            raise AssertionError("a kernel of a main path was never launched")
+        report["record"] = {"kernels": [{
+            "name": "roi_align_ml",
+            "route": "cuda",
+            "source": "u2seg_torch/csrc/roi_align_ml.cu",
+            "replaces": "u2seg_tpu/ops/roi_align_pallas.py:435",
+            "launches": fwd_launches,
+            "max_abs_err": max(k1[s]["max_abs_err_f32"] for s in k1),
+            "ms": k1[7]["ms"],
+            "plain_ms": k1[7]["plain_ms"],
+            "bound_ms": k1[7]["bound_ms"],
+            "bound_by": k1[7]["bound_by"],
+            "library_ms": None,
+        }, {
+            "name": "roi_align_ml_backward",
+            "route": "cuda",
+            "source": "u2seg_torch/csrc/roi_align_ml.cu",
+            "replaces": "u2seg_tpu/ops/roi_align_pallas.py:1074",
+            "launches": tr["backward_launches"],
+            "max_abs_err": max(k3[s]["max_abs_err_f32"] for s in k3),
+            "ms": k3[7]["ms"],
+            "plain_ms": k3[7]["plain_ms"],
+            "bound_ms": k3[7]["bound_ms"],
+            "bound_by": k3[7]["bound_by"],
+            "library_ms": None,
+        }]}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump({"smi": smi, "build_s": build_s, "kernel": kern,
-                       "slice": rows, "launches": launches, "profile": prof,
-                       "cpu_parity": parity,
-                       "record": record}, f, indent=1)
-    log(json.dumps(record))
+            json.dump(report, f, indent=1)
+    if phases != all_phases:
+        log("partial run: no result line")
+        return
+    log(json.dumps(report["record"]))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

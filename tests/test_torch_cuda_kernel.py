@@ -1,4 +1,5 @@
-"""The multilevel ROIAlign CUDA kernel vs its plain twin, on the card.
+"""The multilevel ROIAlign CUDA kernels (forward and backward) vs their plain
+twin, on the card.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -7,7 +8,10 @@ JAX, so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernel.py
 
 Tolerances: f32 (TF32 off) 1e-4 * max(1, max|plain|); bf16 at the AMP
-tolerance (rtol 0.05, atol 0.03).
+tolerance (rtol 0.05, atol 0.03). The backward kernel adds with atomics,
+whose order changes from run to run: its f32 gradients are held to autograd of
+the twin at 1e-4 * max(1, max|plain grad|), its bf16 ones (one rounding of an
+f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain grad|) / 8.
 """
 import numpy as np
 import pytest
@@ -66,3 +70,49 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         rap.multilevel_roi_align_kernel(
             [f.double() for f in feats], boxes, bidx, 7, STRIDES)
+
+
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_autograd_of_twin(dev, s, dtype):
+    feats, boxes, bidx = _inputs(dev, dtype)
+    g = torch.randn(boxes.shape[0], s, s, feats[0].shape[-1], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    fk = [f.clone().requires_grad_() for f in feats]
+    fp = [f.clone().requires_grad_() for f in feats]
+    before = (rap.multilevel_roi_align_kernel.launches,
+              rap.multilevel_roi_align_backward.launches)
+    out = rap.multilevel_roi_align_train(fk, boxes, bidx, s, STRIDES)
+    got = torch.autograd.grad(out, fk, g)
+    assert (rap.multilevel_roi_align_kernel.launches,
+            rap.multilevel_roi_align_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref = torch.autograd.grad(
+        rap.multilevel_roi_align_ref(fp, boxes, bidx, s, STRIDES), fp, g)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        scale = max(1.0, float(b.float().abs().max()))
+        err = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-4 * scale
+        else:
+            assert bool((err <= 0.03 * scale / 8 + 0.05 * b.float().abs()).all())
+
+
+def test_backward_kernel_through_channels_last_views_and_no_rois(dev):
+    feats, boxes, bidx = _inputs(dev, torch.float32)
+    leaves = [f.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+              .requires_grad_() for f in feats]
+    out = rap.multilevel_roi_align_train(
+        [t.permute(0, 2, 3, 1) for t in leaves], boxes, bidx, 7, STRIDES)
+    out.sum().backward()
+    fp = [f.clone().requires_grad_() for f in feats]
+    rap.multilevel_roi_align_ref(fp, boxes, bidx, 7, STRIDES).sum().backward()
+    for leaf, p in zip(leaves, fp):
+        assert leaf.grad.shape == leaf.shape
+        assert float((leaf.grad.permute(0, 2, 3, 1) - p.grad).abs().max()) <= 1e-4 * max(
+            1.0, float(p.grad.abs().max()))
+    empty = rap.multilevel_roi_align_train(
+        [f.clone().requires_grad_() for f in feats], boxes[:0], bidx[:0], 7, STRIDES)
+    assert empty.shape == (0, 7, 7, feats[0].shape[-1])

@@ -1,4 +1,7 @@
-// Multilevel FPN ROIAlign forward for Hopper (sm_90a).
+// Multilevel FPN ROIAlign for Hopper (sm_90a): the forward and, further down,
+// its gradient w.r.t. the levels.
+//
+// FORWARD
 //
 // Replaces the TPU kernels _ml_kernel_prew (u2seg_tpu/ops/roi_align_pallas.py:435,
 // the default) and _ml_kernel (:225, U2SEG_POOL_PREW=0): both compute
@@ -67,24 +70,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
-roi_align_ml_kernel(LevelTable levels,
-                    const int* __restrict__ roi_i,    // (R, 4): lvl, oy, ox, b
-                    const float* __restrict__ roi_f,  // (R, 4): y0, x0, bin_h, bin_w
-                    Tout* __restrict__ out,           // (R, s, s, C)
-                    int channels, int s, int r, int win_y, int win_x) {
-  __shared__ int tap_cell[2][kMaxSamples][2];   // [axis][sample][tap]
-  __shared__ float tap_w[2][kMaxSamples][2];
-
-  const int roi = blockIdx.x;
-  const int py = blockIdx.z;
+// Per-axis tap tables of one ROI in shared memory: for each of the s*r sample
+// coordinates along y (axis 0) and x (axis 1), the two level cells it reads
+// and their bilinear weights with the 1/r mean folded in. A tap outside the
+// true level dims or the window gets weight 0 (and cell 0). Ends with a
+// __syncthreads().
+__device__ __forceinline__ void build_taps(
+    int (*tap_cell)[kMaxSamples][2], float (*tap_w)[kMaxSamples][2],
+    const int* __restrict__ roi_i, const float* __restrict__ roi_f, int roi,
+    int height, int width, int s, int r, int win_y, int win_x) {
   const int n = s * r;
-  const int lvl = roi_i[roi * 4 + 0];
-  const int b = roi_i[roi * 4 + 3];
-  const int height = levels.h[lvl];
-  const int width = levels.w[lvl];
-
   for (int t = threadIdx.x; t < 2 * n; t += blockDim.x) {
     const int axis = t / n;  // 0: y, 1: x
     const int i = t - axis * n;
@@ -111,6 +106,26 @@ roi_align_ml_kernel(LevelTable levels,
     }
   }
   __syncthreads();
+}
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+roi_align_ml_kernel(LevelTable levels,
+                    const int* __restrict__ roi_i,    // (R, 4): lvl, oy, ox, b
+                    const float* __restrict__ roi_f,  // (R, 4): y0, x0, bin_h, bin_w
+                    Tout* __restrict__ out,           // (R, s, s, C)
+                    int channels, int s, int r, int win_y, int win_x) {
+  __shared__ int tap_cell[2][kMaxSamples][2];   // [axis][sample][tap]
+  __shared__ float tap_w[2][kMaxSamples][2];
+
+  const int roi = blockIdx.x;
+  const int py = blockIdx.z;
+  const int lvl = roi_i[roi * 4 + 0];
+  const int b = roi_i[roi * 4 + 3];
+  const int height = levels.h[lvl];
+  const int width = levels.w[lvl];
+
+  build_taps(tap_cell, tap_w, roi_i, roi_f, roi, height, width, s, r, win_y, win_x);
 
   const size_t row_stride = static_cast<size_t>(width) * channels;
   const Tin* base = static_cast<const Tin*>(levels.ptr[lvl]) +
@@ -141,6 +156,81 @@ roi_align_ml_kernel(LevelTable levels,
         }
       }
       store2(out + ((static_cast<size_t>(roi) * s + py) * s + px) * channels + c, a0, a1);
+    }
+  }
+}
+
+// BACKWARD (gradient w.r.t. the levels)
+//
+// Replaces the TPU kernel _ml_bwd_kernel (u2seg_tpu/ops/roi_align_pallas.py
+// :1074): the exact transpose of the forward above. With g the (R, s, s, C)
+// f32 cotangent of the pooled output,
+//   grad[lvl(roi)][b(roi), y, x, c] += wy * wx * g[roi, py, px, c]
+// for every tap (y, wy) of a sample row of bin row py and every tap (x, wx)
+// of a sample column of bin column px: the same tap tables as the forward,
+// 1/r folded into each axis, so the r x r mean's 1/r^2 is in the product.
+//
+// The TPU kernel is a serial read-add-write chain of whole windows over a
+// sequential grid, with per-axis small-window tiers that change no value.
+// Here blocks run in no order, so the sums meet in f32 atomics instead: one
+// block per (ROI, output row), each thread owns a channel pair and adds
+// wy * wx * g into the zero-initialised f32 gradient levels at their true
+// dims, one 8-byte vector atomic per non-zero tap. The launcher zeroes the
+// gradient levels itself. Atomic adds land in an order that changes from run
+// to run, so two runs differ in the last bits of an f32 sum.
+//
+// Bound on this card: bytes. It reads g once and must write every gradient
+// cell once (the zero fill), for 2 r^2 * 4 flops per g value; the atomics'
+// read-modify-write traffic in L2 is what this simple design pays on top.
+
+__global__ void __launch_bounds__(kThreads)
+roi_align_ml_backward_kernel(LevelTable grads,   // f32, zero-initialised
+                             const int* __restrict__ roi_i,
+                             const float* __restrict__ roi_f,
+                             const float* __restrict__ g,   // (R, s, s, C)
+                             int channels, int s, int r, int win_y, int win_x) {
+  __shared__ int tap_cell[2][kMaxSamples][2];
+  __shared__ float tap_w[2][kMaxSamples][2];
+
+  const int roi = blockIdx.x;
+  const int py = blockIdx.z;
+  const int lvl = roi_i[roi * 4 + 0];
+  const int b = roi_i[roi * 4 + 3];
+  const int height = grads.h[lvl];
+  const int width = grads.w[lvl];
+  build_taps(tap_cell, tap_w, roi_i, roi_f, roi, height, width, s, r, win_y, win_x);
+
+  const size_t row_stride = static_cast<size_t>(width) * channels;
+  float* base = static_cast<float*>(const_cast<void*>(grads.ptr[lvl])) +
+                static_cast<size_t>(b) * height * row_stride;
+  const int pairs = channels / 2;
+  for (int cp = blockIdx.y * blockDim.x + threadIdx.x; cp < pairs;
+       cp += gridDim.y * blockDim.x) {
+    const int c = 2 * cp;
+    for (int px = 0; px < s; ++px) {
+      const float2 gv = load2(g + ((static_cast<size_t>(roi) * s + py) * s + px) * channels + c);
+      for (int sy = 0; sy < r; ++sy) {
+        const int iy = py * r + sy;
+        for (int ty = 0; ty < 2; ++ty) {
+          const float wy = tap_w[0][iy][ty];
+          if (wy == 0.0f) continue;
+          const int y = tap_cell[0][iy][ty];
+          if (y >= height) continue;   // bounds guard; the tap table already clears these
+          float* row = base + y * row_stride + c;
+          for (int sx = 0; sx < r; ++sx) {
+            const int ix = px * r + sx;
+            for (int tx = 0; tx < 2; ++tx) {
+              const float wx = tap_w[1][ix][tx];
+              if (wx == 0.0f) continue;
+              const int x = tap_cell[1][ix][tx];
+              if (x >= width) continue;
+              const float wgt = wy * wx;
+              atomicAdd(reinterpret_cast<float2*>(row + static_cast<size_t>(x) * channels),
+                        make_float2(wgt * gv.x, wgt * gv.y));
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -187,6 +277,40 @@ extern "C" int u2seg_roi_align_ml_forward(
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gradient of the forward w.r.t. the levels. grad_ptrs are num_levels f32
+// buffers (batch, h_l, w_l, channels), 8-byte aligned; they need not be
+// initialised: this call zeroes them on the stream, then accumulates.
+// g is the (num_rois, s, s, channels) f32 cotangent. Returns a cudaError_t.
+extern "C" int u2seg_roi_align_ml_backward(
+    const int64_t* grad_ptrs, const int* level_h, const int* level_w,
+    int num_levels, int batch, const int* roi_i, const float* roi_f,
+    const float* g, int num_rois, int channels, int s, int r, int win_y,
+    int win_x, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || s < 1 || r < 1 ||
+      s * r > kMaxSamples || channels < 2 || channels % 2 != 0 || s > 65535 ||
+      batch < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  LevelTable grads = {};
+  for (int l = 0; l < num_levels; ++l) {
+    grads.ptr[l] = reinterpret_cast<const void*>(grad_ptrs[l]);
+    grads.h[l] = level_h[l];
+    grads.w[l] = level_w[l];
+    const size_t bytes = static_cast<size_t>(batch) * level_h[l] * level_w[l] *
+                         channels * sizeof(float);
+    if (bytes == 0) continue;
+    cudaError_t err = cudaMemsetAsync(const_cast<void*>(grads.ptr[l]), 0, bytes, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (num_rois == 0) return static_cast<int>(cudaSuccess);
+  const int pairs = channels / 2;
+  dim3 grid(num_rois, (pairs + kThreads - 1) / kThreads, s);
+  roi_align_ml_backward_kernel<<<grid, kThreads, 0, st>>>(
+      grads, roi_i, roi_f, g, channels, s, r, win_y, win_x);
   return static_cast<int>(cudaGetLastError());
 }
 

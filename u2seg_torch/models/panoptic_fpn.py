@@ -1,10 +1,13 @@
-"""PanopticFPN meta-architecture + panoptic fusion, inference (counterpart of
+"""PanopticFPN meta-architecture + panoptic fusion (counterpart of
 ``u2seg_tpu/models/panoptic_fpn.py``).
 
-``PanopticFPN.forward(images, image_sizes, combine)`` is the JAX package's
-``__call__(..., train=False, combine=...)``: raw RGB ``(B, H, W, 3)`` in, a
-``PanopticOutput`` with fixed-capacity detections, stride-4 semantic logits
-and, with ``combine``, the stride-4 panoptic id map and segment table out.
+``PanopticFPN.forward(images, image_sizes, combine=...)`` is the JAX
+package's ``__call__(..., train=False, combine=...)``: raw RGB ``(B, H, W,
+3)`` in, a ``PanopticOutput`` with fixed-capacity detections, stride-4
+semantic logits and, with ``combine``, the stride-4 panoptic id map and
+segment table out; it runs without autograd. With ``gt``, ``sem_seg_gt`` and
+``train=True`` on a model in training mode (``model.train()``) it returns the
+dict of losses, differentiable w.r.t. the parameters.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from u2seg_torch.models.rpn import RPN
 from u2seg_torch.models.sem_seg import SemSegFPNHead
 from u2seg_torch.ops.consts import device_table
 from u2seg_torch.ops.mask_paste import paste_masks
-from u2seg_torch.structures.instances import Detections
+from u2seg_torch.structures.instances import Detections, GtInstances
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -70,9 +73,46 @@ class PanopticFPN(nn.Module):
         return {k: v.contiguous(memory_format=torch.channels_last)
                 for k, v in feats.items()}
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
-                combine: bool = False) -> PanopticOutput:
+                gt: Optional[GtInstances] = None,
+                sem_seg_gt: Optional[torch.Tensor] = None,
+                train: bool = False, combine: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a model whose training mode is "
+                f"{self.training}: call model.train() / model.eval() first")
+        if train:
+            return self.losses(images, image_sizes, gt, sem_seg_gt, generator)
+        with torch.no_grad():
+            return self.inference(images, image_sizes, combine)
+
+    def losses(self, images, image_sizes, gt: GtInstances, sem_seg_gt,
+               generator=None):
+        """The train forward -> {loss name: scalar}; fg/bg sampling draws
+        from ``generator``."""
+        return self.losses_from_features(self.features(images), image_sizes, gt,
+                                         sem_seg_gt, generator)
+
+    def losses_from_features(self, features, image_sizes, gt: GtInstances,
+                             sem_seg_gt, generator=None):
+        """The train forward after the backbone: features {"p2".."p6"} (NCHW,
+        channels-last memory) -> the loss dict."""
+        out = {}
+        if sem_seg_gt is not None:
+            out.update(self.sem_seg_head.losses(self.sem_seg_head(features),
+                                                sem_seg_gt))
+        rpn = self.proposal_generator(features, image_sizes, gt=gt, train=True,
+                                      generator=generator)
+        out.update(rpn.losses)
+        out.update(self.roi_heads(
+            features, rpn.proposal_boxes, rpn.proposal_scores,
+            rpn.proposal_valid, image_sizes, gt=gt, train=True,
+            generator=generator))
+        return out
+
+    def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                  combine: bool = False) -> PanopticOutput:
         features = self.features(images)
         sem_logits = self.sem_seg_head(features)
         rpn = self.proposal_generator(features, image_sizes)

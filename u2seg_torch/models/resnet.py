@@ -3,7 +3,8 @@
 NCHW tensors in channels-last memory, so the FPN levels the pooler reads
 are NHWC-contiguous. Module names follow detectron2
 (``stem.conv1``, ``res2.0.conv1``, ``res2.0.shortcut``, each with ``.norm``).
-Inference only: ``freeze_at`` changes nothing in a forward pass.
+``freeze_at = k`` freezes the stem (k >= 1) and the stages up to res{k}: they
+stay in eval mode when the model trains and pass no gradient down.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class ResNet(nn.Module):
     def __init__(self, cfg: ResNetConfig, in_channels: int = 3):
         super().__init__()
         self.out_features = tuple(cfg.out_features)
+        self.freeze_at = cfg.freeze_at
         self.stem = BasicStem(in_channels, cfg.stem_out_channels, cfg.norm)
         in_ch = cfg.stem_out_channels
         out_ch = cfg.res2_out_channels
@@ -99,11 +101,24 @@ class ResNet(nn.Module):
             out_ch *= 2
             bott *= 2
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_at >= 1:
+            self.stem.eval()
+        for i, name in enumerate(self.stage_names):
+            if self.freeze_at >= i + 2:
+                getattr(self, name).eval()
+        return self
+
     def forward(self, x) -> Dict[str, torch.Tensor]:
         x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
         out = {}
-        for name in self.stage_names:
+        for i, name in enumerate(self.stage_names):
             x = getattr(self, name)(x)
+            if self.freeze_at >= i + 2:
+                x = x.detach()
             if name in self.out_features:
                 out[name] = x
         return out

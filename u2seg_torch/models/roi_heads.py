@@ -1,7 +1,9 @@
-"""ROI heads, inference (counterpart of ``u2seg_tpu/models/roi_heads.py``).
+"""ROI heads (counterpart of ``u2seg_tpu/models/roi_heads.py``).
 
-Box heads, the class-select mask head, ``fast_rcnn_inference`` and the
-Standard / Cascade heads. Pooled features travel as ``(R, S, S, C)``, as in
+Box heads, the class-select mask head, ``fast_rcnn_inference``, proposal
+labelling and sampling, mask targets from box-relative patches, and the
+Standard / Cascade heads with their inference and training branches (the
+keypoint branch is not ported). Pooled features travel as ``(R, S, S, C)``, as in
 the JAX package; the heads flatten them the NCHW way (C, S, S) so d2's
 ``fc1`` weight layout holds. Module names are detectron2's
 (``box_head.{k}.fc1``, ``box_predictor.{k}.cls_score``, ``mask_head.deconv``).
@@ -16,13 +18,33 @@ import torch.nn.functional as F
 from torch import nn
 
 from u2seg_torch.config import ROIHeadsConfig
+from u2seg_torch.models import matcher, sampling
 from u2seg_torch.models.fpn import FPN_STRIDES
 from u2seg_torch.models.layers import Conv2d, ConvTranspose2d, Linear
+from u2seg_torch.ops import losses as L
 from u2seg_torch.ops.nms import batched_nms, topk_stable
-from u2seg_torch.ops.roi_align import multilevel_roi_align
-from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel
+from u2seg_torch.ops.roi_align import multilevel_roi_align, roi_align
+from u2seg_torch.ops.roi_align_ml import (multilevel_roi_align_kernel,
+                                          multilevel_roi_align_train)
 from u2seg_torch.structures import boxes as box_ops
-from u2seg_torch.structures.instances import Detections
+from u2seg_torch.structures.instances import Detections, GtInstances
+
+
+class _ScaleGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity whose gradient is multiplied by ``scale`` (between cascade
+    stages: 1 / number of stages)."""
+    return _ScaleGradient.apply(x, scale)
 
 
 class FastRCNNConvFCHead(nn.Module):
@@ -97,6 +119,92 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         return out.float()
 
 
+# ---------------------------------------------------------------------------
+# Proposal labelling / sampling and mask targets (training)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SampledProposals:
+    boxes: torch.Tensor        # (B, S, 4)
+    valid: torch.Tensor        # (B, S) bool
+    is_fg: torch.Tensor        # (B, S) bool
+    gt_classes: torch.Tensor   # (B, S) int64, num_classes for background
+    gt_idx: torch.Tensor       # (B, S) int64 matched gt row (junk for bg)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: (B, N, ...), idx: (B, M) -> (B, M, ...): rows idx[b] of x[b]."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def add_ground_truth_to_proposals(prop_boxes, prop_scores, prop_valid,
+                                  gt: GtInstances):
+    """Append the gt boxes to the proposal set (score 10, "logit of ~1")."""
+    gt_score = torch.where(gt.valid, 10.0, -float("inf")).to(prop_scores.dtype)
+    return (torch.cat([prop_boxes, gt.boxes], dim=1),
+            torch.cat([prop_scores, gt_score], dim=1),
+            torch.cat([prop_valid, gt.valid], dim=1))
+
+
+def _match_boxes(boxes, valid, gt: GtInstances, iou_threshold: float):
+    iou = box_ops.pairwise_iou(gt.boxes, boxes)                  # (B, G, K)
+    iou = torch.where(valid[:, None, :], iou, torch.zeros_like(iou))
+    return matcher.match(iou, gt.valid, (iou_threshold,), (0, 1), False)
+
+
+def label_and_sample_proposals(
+    prop_boxes, prop_valid, gt: GtInstances, iou_threshold: float,
+    num_samples: int, positive_fraction: float, num_classes: int,
+    generator: Optional[torch.Generator] = None,
+) -> SampledProposals:
+    """Match proposals to gt at one IoU threshold, then sample a fixed-size
+    fg/bg batch per image. Background slots get class id ``num_classes``."""
+    midx, mlabel = _match_boxes(prop_boxes, prop_valid, gt, iou_threshold)
+    # invalid proposals must never be sampled
+    mlabel = torch.where(prop_valid, mlabel, -1)
+    sidx, svalid, spos = sampling.subsample_labels(
+        mlabel, num_samples, positive_fraction, generator)
+    sgt_idx = torch.gather(midx, 1, sidx)
+    cls = torch.where(spos & svalid, torch.gather(gt.classes.long(), 1, sgt_idx),
+                      num_classes)
+    return SampledProposals(_take(prop_boxes, sidx), svalid, spos, cls, sgt_idx)
+
+
+def match_and_label_boxes(boxes, valid, gt: GtInstances, iou_threshold: float,
+                          num_classes: int):
+    """Cascade stages > 0: re-match the refined boxes without re-sampling.
+    Returns (gt_classes, gt_idx, is_fg)."""
+    midx, mlabel = _match_boxes(boxes, valid, gt, iou_threshold)
+    fg = (mlabel == 1) & valid
+    cls = torch.where(fg, torch.gather(gt.classes.long(), 1, midx), num_classes)
+    return cls, midx, fg
+
+
+def mask_targets_from_patches(
+    patches: torch.Tensor,     # (N, P, P) gt masks cropped to their gt box
+    gt_boxes: torch.Tensor,    # (N, 4) the boxes the patches are relative to
+    roi_boxes: torch.Tensor,   # (N, 4) proposal boxes to extract targets for
+    out_size: int,
+) -> torch.Tensor:
+    """Resample gt-box-relative mask patches at proposal boxes -> (N, out,
+    out): the proposal box in patch coordinates, then an aligned ROIAlign
+    (2 x 2 samples) of patch n at box n."""
+    n, p, _ = patches.shape
+    gw = torch.clamp(gt_boxes[:, 2] - gt_boxes[:, 0], min=1e-4)
+    gh = torch.clamp(gt_boxes[:, 3] - gt_boxes[:, 1], min=1e-4)
+    sx = p / gw
+    sy = p / gh
+    pboxes = torch.stack([
+        (roi_boxes[:, 0] - gt_boxes[:, 0]) * sx,
+        (roi_boxes[:, 1] - gt_boxes[:, 1]) * sy,
+        (roi_boxes[:, 2] - gt_boxes[:, 0]) * sx,
+        (roi_boxes[:, 3] - gt_boxes[:, 1]) * sy], dim=-1)
+    out = roi_align(patches[..., None], pboxes,
+                    torch.arange(n, dtype=torch.int32, device=patches.device),
+                    out_size, 1.0, sampling_ratio=2)
+    return out[..., 0]
+
+
 def fast_rcnn_inference(
     boxes: torch.Tensor,        # (B, K, C*4) or (B, K, 4)
     scores: torch.Tensor,       # (B, K, C+1) softmax probabilities
@@ -158,13 +266,16 @@ def fast_rcnn_inference(
 
 
 class StandardROIHeads(nn.Module):
-    """Box + mask branches with separate poolers, inference."""
+    """Box + mask branches with separate poolers. ``forward`` returns
+    ``Detections``, or with ``train`` the loss dict."""
 
     def __init__(self, cfg: ROIHeadsConfig, in_channels: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 mask_fg_capacity: int = 128):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.mask_fg_capacity = mask_fg_capacity
         self._build_box_branch(in_channels)
         if cfg.mask_on:
             m = cfg.mask_head
@@ -189,12 +300,15 @@ class StandardROIHeads(nn.Module):
         return [FPN_STRIDES[f] for f in self.cfg.in_features]
 
     def _pool(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor,
-              resolution: int, sampling_ratio: int) -> torch.Tensor:
+              resolution: int, sampling_ratio: int,
+              train: bool = False) -> torch.Tensor:
         """boxes: (B, K, 4) -> pooled (B*K, R, R, C).
 
         ``pooler_impl``: "pallas" is the multilevel ROIAlign kernel (its
-        plain twin on the CPU), emitting the heads' compute dtype; "gather"
-        the gather pooler (f32); "auto" the kernel on cuda, gather on CPU."""
+        plain twin on the CPU), emitting the heads' compute dtype, or with
+        ``train`` the differentiable kernel pair emitting f32; "gather" the
+        gather pooler (f32, differentiable); "auto" the kernels on cuda,
+        gather on CPU."""
         b, k, _ = boxes.shape
         flat = boxes.reshape(-1, 4)
         bidx = torch.arange(b, dtype=torch.int32,
@@ -205,6 +319,10 @@ class StandardROIHeads(nn.Module):
         impl = self.cfg.pooler_impl
         if impl == "auto":
             impl = "pallas" if boxes.device.type == "cuda" else "gather"
+        if impl == "pallas" and train:
+            return multilevel_roi_align_train(
+                feats, flat, bidx, resolution, tuple(self._strides()),
+                sampling_ratio=sampling_ratio)
         if impl == "pallas":
             return multilevel_roi_align_kernel(
                 feats, flat, bidx, resolution, tuple(self._strides()),
@@ -241,9 +359,97 @@ class StandardROIHeads(nn.Module):
                                     c.bbox_reg_weights)
         return pred, probs
 
-    def forward(self, features, rpn_boxes, rpn_scores, rpn_valid,
-                image_sizes) -> Detections:
+    # ---- training ----
+
+    def _box_losses(self, scores, deltas, proposals: SampledProposals,
+                    matched_gt_boxes, reg_weights):
+        """Softmax CE on all samples + smooth-L1 on the foreground ones."""
         c = self.cfg
+        b, s = proposals.valid.shape
+        cls_loss = L.softmax_ce(scores.reshape(b, s, -1), proposals.gt_classes)
+        cls_loss = (cls_loss * proposals.valid).sum()
+        tgt = box_ops.get_deltas(proposals.boxes, matched_gt_boxes, reg_weights)
+        d = deltas.reshape(b, s, -1)
+        if not c.cls_agnostic_bbox_reg:
+            idx = torch.clamp(proposals.gt_classes, 0, c.num_classes - 1)
+            d = torch.gather(d.reshape(b, s, c.num_classes, 4), 2,
+                             idx[..., None, None].expand(-1, -1, 1, 4))[..., 0, :]
+        else:
+            d = d[..., :4]
+        reg = L.smooth_l1(d, tgt, c.smooth_l1_beta)
+        reg_loss = (reg.sum(-1) * proposals.is_fg).sum()
+        normalizer = torch.clamp(proposals.valid.sum(), min=1.0)
+        return {"loss_cls": cls_loss / normalizer,
+                "loss_box_reg": reg_loss / normalizer}
+
+    def _select_mask_rois(self, proposals: SampledProposals):
+        """The first ``mask_fg_capacity`` foreground slots per image (the
+        sampling was already random): a stable sort, fg first."""
+        order = torch.sort((~proposals.is_fg).to(torch.int8), dim=1,
+                           stable=True)[1]
+        idx = order[:, :self.mask_fg_capacity]
+        return idx, torch.gather(proposals.is_fg, 1, idx)
+
+    def _mask_loss(self, features, proposals: SampledProposals, gt: GtInstances):
+        c = self.cfg
+        b = proposals.valid.shape[0]
+        midx, mvalid = self._select_mask_rois(proposals)          # (B, cap)
+        cap = midx.shape[1]
+        mboxes = _take(proposals.boxes, midx)
+        pooled = self._pool(features, mboxes, c.mask_head.pooler_resolution,
+                            c.mask_head.pooler_sampling_ratio, train=True)
+        mgt_idx = torch.gather(proposals.gt_idx, 1, midx)
+        mcls = torch.gather(proposals.gt_classes, 1, midx)
+        n_mask_cls = 1 if c.mask_head.cls_agnostic_mask else c.num_classes
+        sel_cls = torch.clamp(mcls, 0, n_mask_cls - 1).reshape(-1)
+        logits = self.mask_head(pooled.to(self.compute_dtype), sel_cls)
+        out_size = logits.shape[1]
+        # the matched gt's patch and box per slot (an index gather)
+        targets = mask_targets_from_patches(
+            _take(gt.masks, mgt_idx).flatten(0, 1).float(),
+            _take(gt.boxes, mgt_idx).flatten(0, 1), mboxes.flatten(0, 1),
+            out_size)
+        targets = (targets > 0.5).float().reshape(b, cap, out_size, out_size)
+        per_px = L.bce_with_logits(logits.reshape(b, cap, out_size, out_size),
+                                   targets)
+        per_roi = per_px.mean(dim=(-2, -1))
+        num_fg = torch.clamp(mvalid.sum(), min=1.0)
+        return {"loss_mask": (per_roi * mvalid).sum() / num_fg}
+
+    def _sample(self, rpn_boxes, rpn_scores, rpn_valid, gt, iou, generator):
+        c = self.cfg
+        boxes, _, valid = add_ground_truth_to_proposals(
+            rpn_boxes, rpn_scores, rpn_valid, gt)
+        return label_and_sample_proposals(
+            boxes, valid, gt, iou, c.batch_size_per_image, c.positive_fraction,
+            c.num_classes, generator)
+
+    def losses(self, features, rpn_boxes, rpn_scores, rpn_valid, image_sizes,
+               gt: GtInstances, generator=None) -> Dict[str, torch.Tensor]:
+        c = self.cfg
+        proposals = self._sample(rpn_boxes, rpn_scores, rpn_valid, gt,
+                                 c.iou_thresholds[0], generator)
+        pooled = self._pool(features, proposals.boxes,
+                            c.box_head.pooler_resolution,
+                            c.box_head.pooler_sampling_ratio, train=True)
+        scores, deltas = self.box_predictor(
+            self.box_head(pooled.to(self.compute_dtype)))
+        out = self._box_losses(scores, deltas, proposals,
+                               _take(gt.boxes, proposals.gt_idx),
+                               c.bbox_reg_weights)
+        if c.mask_on and gt.masks is not None:
+            out.update(self._mask_loss(features, proposals, gt))
+        return out
+
+    def forward(self, features, rpn_boxes, rpn_scores, rpn_valid,
+                image_sizes, gt: Optional[GtInstances] = None,
+                train: bool = False, generator=None):
+        c = self.cfg
+        if train:
+            if gt is None:
+                raise ValueError("training needs gt instances")
+            return self.losses(features, rpn_boxes, rpn_scores, rpn_valid,
+                               image_sizes, gt, generator)
         pred_boxes, probs = self.forward_box(features, rpn_boxes, image_sizes)
         det = fast_rcnn_inference(
             pred_boxes, probs, rpn_valid, image_sizes, c.score_thresh_test,
@@ -265,10 +471,40 @@ class CascadeROIHeads(StandardROIHeads):
              for h in self.box_head])
 
     def _refine(self, deltas, boxes, stage, image_sizes):
+        """The next stage's boxes; they carry no gradient."""
         b, k = boxes.shape[:2]
         new = box_ops.apply_deltas(deltas.reshape(b, k, -1)[..., :4], boxes,
                                    self.cfg.cascade_bbox_reg_weights[stage])
-        return box_ops.clip(new, image_sizes)
+        return box_ops.clip(new, image_sizes).detach()
+
+    def losses(self, features, rpn_boxes, rpn_scores, rpn_valid, image_sizes,
+               gt: GtInstances, generator=None) -> Dict[str, torch.Tensor]:
+        c = self.cfg
+        num_stages = len(c.cascade_ious)
+        proposals = self._sample(rpn_boxes, rpn_scores, rpn_valid, gt,
+                                 c.cascade_ious[0], generator)
+        boxes, valid = proposals.boxes, proposals.valid
+        out: Dict[str, torch.Tensor] = {}
+        cur = proposals
+        for stage in range(num_stages):
+            if stage > 0:
+                cls, gidx, fg = match_and_label_boxes(
+                    boxes, valid, gt, c.cascade_ious[stage], c.num_classes)
+                cur = SampledProposals(boxes, valid, fg, cls, gidx)
+            pooled = self._pool(features, boxes, c.box_head.pooler_resolution,
+                                c.box_head.pooler_sampling_ratio, train=True)
+            pooled = scale_gradient(pooled, 1.0 / num_stages)
+            scores, deltas = self.box_predictor[stage](
+                self.box_head[stage](pooled.to(self.compute_dtype)))
+            stage_losses = self._box_losses(
+                scores, deltas, cur, _take(gt.boxes, cur.gt_idx),
+                c.cascade_bbox_reg_weights[stage])
+            out.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
+            if stage < num_stages - 1:
+                boxes = self._refine(deltas, boxes, stage, image_sizes)
+        if c.mask_on and gt.masks is not None:
+            out.update(self._mask_loss(features, proposals, gt))
+        return out
 
     def forward_box(self, features, rpn_boxes, image_sizes):
         c = self.cfg

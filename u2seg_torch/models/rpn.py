@@ -1,5 +1,5 @@
-"""Region Proposal Network, inference (counterpart of
-``u2seg_tpu/models/rpn.py``: ``RPNHead`` and ``RPN._predict_proposals``).
+"""Region Proposal Network (counterpart of ``u2seg_tpu/models/rpn.py``:
+``RPNHead``, ``RPN._predict_proposals`` and, for training, ``RPN._losses``).
 
 Fixed capacities as in the JAX package: per-level pre-NMS top-k, one NMS
 over the (level, image) grid, cross-level post-NMS top-k, with validity
@@ -10,18 +10,21 @@ which is what ``lax.top_k`` returns and what the JAX package's pre-NMS
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from u2seg_torch.config import AnchorConfig, RPNConfig
+from u2seg_torch.models import matcher, sampling
 from u2seg_torch.models.anchors import multilevel_anchors
 from u2seg_torch.models.fpn import FPN_STRIDES
 from u2seg_torch.models.layers import Conv2d
+from u2seg_torch.ops import losses as L
 from u2seg_torch.ops.nms import nms, topk_stable
 from u2seg_torch.structures import boxes as box_ops
+from u2seg_torch.structures.instances import GtInstances
 
 
 class RPNHead(nn.Module):
@@ -47,6 +50,7 @@ class RPNOutput:
     proposal_boxes: torch.Tensor   # (B, K, 4) f32
     proposal_scores: torch.Tensor  # (B, K) f32, -inf for invalid
     proposal_valid: torch.Tensor   # (B, K) bool
+    losses: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 class RPN(nn.Module):
@@ -58,7 +62,12 @@ class RPN(nn.Module):
         self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios))
 
     def forward(self, features: Dict[str, torch.Tensor],
-                image_sizes: torch.Tensor) -> RPNOutput:
+                image_sizes: torch.Tensor, gt: Optional[GtInstances] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> RPNOutput:
+        """With ``train`` and ``gt``: also the two RPN losses (anchor
+        sampling draws from ``generator``), the train top-k sizes, and
+        proposals that carry no gradient."""
         c = self.cfg
         feats = [features[f] for f in c.in_features]
         logits_nchw, deltas_nchw = self.rpn_head(feats)
@@ -72,10 +81,46 @@ class RPN(nn.Module):
             self.anchor_cfg.sizes, self.anchor_cfg.aspect_ratios,
             self.anchor_cfg.offset, device=feats[0].device,
         )
+        losses = {}
+        if train and gt is not None:
+            losses = self._losses(anchors, logits, deltas, gt, generator)
+        topk = c.pre_nms_topk_train if train else c.pre_nms_topk_test
+        post = c.post_nms_topk_train if train else c.post_nms_topk_test
         boxes, scores, valid = self._predict_proposals(
-            anchors, logits, deltas, image_sizes,
-            c.pre_nms_topk_test, c.post_nms_topk_test)
-        return RPNOutput(boxes, scores, valid)
+            anchors, logits, deltas, image_sizes, topk, post)
+        if train:
+            # proposals feed ROI sampling only
+            boxes, scores = boxes.detach(), scores.detach()
+        return RPNOutput(boxes, scores, valid, losses)
+
+    def _losses(self, anchors, logits, deltas, gt: GtInstances, generator):
+        """Objectness BCE over the sampled anchors and smooth-L1 on the
+        sampled positives, in f32, over the whole batch at once."""
+        c = self.cfg
+        all_anchors = torch.cat(anchors, dim=0)                   # (N, 4)
+        all_logits = torch.cat(logits, dim=1).float()             # (B, N)
+        all_deltas = torch.cat(deltas, dim=1).float()             # (B, N, 4)
+        b = all_logits.shape[0]
+        iou = box_ops.pairwise_iou(gt.boxes, all_anchors)         # (B, G, N)
+        midx, mlabel = matcher.match(iou, gt.valid, c.iou_thresholds,
+                                     (0, -1, 1), allow_low_quality_matches=True)
+        sidx, svalid, spos = sampling.subsample_labels(
+            mlabel, c.batch_size_per_image, c.positive_fraction, generator)
+        s_logit = torch.gather(all_logits, 1, sidx)
+        obj_loss = (L.bce_with_logits(s_logit, spos) * svalid).sum()
+        s_gt = torch.gather(midx, 1, sidx)
+        tgt = box_ops.get_deltas(
+            all_anchors[sidx],
+            torch.gather(gt.boxes, 1, s_gt[..., None].expand(-1, -1, 4)),
+            c.bbox_reg_weights)
+        s_delta = torch.gather(all_deltas, 1, sidx[..., None].expand(-1, -1, 4))
+        reg = L.smooth_l1(s_delta, tgt, c.smooth_l1_beta)
+        reg_loss = (reg.sum(-1) * spos).sum()
+        normalizer = c.batch_size_per_image * b
+        return {
+            "loss_rpn_cls": c.loss_weight * obj_loss / normalizer,
+            "loss_rpn_loc": c.loss_weight * reg_loss / normalizer,
+        }
 
     def _predict_proposals(self, anchors, logits, deltas, image_sizes,
                            topk: int, post: int):

@@ -1,9 +1,11 @@
-"""Semantic segmentation FPN head, inference (counterpart of
+"""Semantic segmentation FPN head (counterpart of
 ``u2seg_tpu/models/sem_seg.py``).
 
 Per-level scale heads (3x3 conv + GN + relu, exact 2x bilinear upsamples down
 to the common stride), summed, then a 1x1 predictor; logits stay at the
-common stride (B, H/4, W/4, C) in f32. detectron2 names: ``p4.0`` / ``p4.2``
+common stride (B, H/4, W/4, C) in f32. The training loss upsamples them to
+the input resolution (exact 4x bilinear) and takes the pixel cross-entropy
+with an ignore label. detectron2 names: ``p4.0`` / ``p4.2``
 (convs at even Sequential slots, upsamples between), each conv with ``.norm``.
 
 GN epsilon is 1e-6: the JAX package builds this GroupNorm with flax's default
@@ -21,6 +23,7 @@ from torch import nn
 from u2seg_torch.config import SemSegHeadConfig
 from u2seg_torch.models.fpn import FPN_STRIDES
 from u2seg_torch.models.layers import Conv2d
+from u2seg_torch.ops import losses as L
 from u2seg_torch.ops.norms import GroupNorm
 
 SEM_SEG_GN_EPS = 1e-6
@@ -90,3 +93,13 @@ class SemSegFPNHead(nn.Module):
         logits = self.predictor(summed).float()
         return logits.permute(0, 2, 3, 1)                # (B, H/4, W/4, C)
 
+
+    def losses(self, logits: torch.Tensor,
+               targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """logits: (B, H/4, W/4, C) f32 from ``forward``; targets: (B, H, W)
+        int labels, ``ignore_value`` = ignore. The loss at full resolution."""
+        c = self.cfg
+        full = upsample_bilinear(logits.permute(0, 3, 1, 2), c.common_stride)
+        loss = L.softmax_ce_ignore(full.permute(0, 2, 3, 1), targets,
+                                   c.ignore_value)
+        return {"loss_sem_seg": loss * c.loss_weight}

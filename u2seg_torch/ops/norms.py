@@ -1,14 +1,23 @@
-"""Normalization layers for inference.
+"""Normalization layers.
 
-Counterpart of ``u2seg_tpu/ops/norms.py`` on its inference path:
+Counterpart of ``u2seg_tpu/ops/norms.py``:
 
-- ``BatchNorm2d`` (BN, SyncBN, FrozenBN): running statistics folded into one
-  per-channel affine in f32 (``mul = rsqrt(var + eps) * weight``,
-  ``add = -mean * mul + bias``), applied in the activation dtype. Parameter
-  and buffer names are detectron2's (``weight``, ``bias``, ``running_mean``,
-  ``running_var``), so a d2 state dict loads as it is. Cross-device moment
-  sync (SyncBN) is a training concern and is not needed here.
-- ``GroupNorm``: flax's formula — f32 statistics with the fast variance
+- ``BatchNorm2d`` (BN, SyncBN, FrozenBN). In eval mode, and always when
+  frozen, the running statistics are folded into one per-channel affine in
+  f32 (``mul = rsqrt(var + eps) * weight``, ``add = -mean * mul + bias``)
+  applied in the activation dtype. In training mode (``.train()``; a new
+  layer starts in eval mode) it is flax's BatchNorm:
+  batch moments over (B, H, W) in f32 with the fast variance
+  ``max(0, E[x^2] - E[x]^2)``, ``(x - mean) * (rsqrt(var + eps) * weight) +
+  bias`` in f32 cast to the activation dtype, and running statistics moved
+  by ``new = 0.9 * old + 0.1 * batch`` with the BIASED batch variance
+  (``torch.nn.BatchNorm2d`` stores the unbiased one and counts momentum the
+  other way round). Gradients flow through the batch moments. On one device
+  SyncBN is BN; the cross-device moment sync belongs to the data-parallel
+  trainer. Parameter and buffer names are detectron2's (``weight``,
+  ``bias``, ``running_mean``, ``running_var``), so a d2 state dict loads as
+  it is.
+- ``GroupNorm``: flax's formula: f32 statistics with the fast variance
   ``E[x^2] - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) *
   weight) + bias``, result cast to the activation dtype.
 """
@@ -22,20 +31,42 @@ from torch import nn
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm on NCHW tensors as a folded affine."""
+    """BatchNorm on NCHW tensors (see the module doc). ``frozen`` is
+    FrozenBN: never batch statistics, no gradient to weight and bias."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9, frozen: bool = False):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.frozen = frozen
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        # like the JAX package's norm, which uses the running statistics
+        # unless a caller asks for training: a new layer starts in eval mode
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        add = -self.running_mean * mul + self.bias
         shape = (1, -1, 1, 1)
+        if self.training and not self.frozen:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            return y.to(x.dtype)
+        weight, bias = self.weight, self.bias
+        if self.frozen:
+            weight, bias = weight.detach(), bias.detach()
+        mul = torch.rsqrt(self.running_var + self.eps) * weight
+        add = -self.running_mean * mul + bias
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
@@ -65,11 +96,12 @@ class GroupNorm(nn.Module):
 
 
 def get_norm(norm: Optional[str], features: int) -> Optional[nn.Module]:
-    """Norm factory mirroring the JAX package's ``get_norm`` (inference)."""
+    """Norm factory mirroring the JAX package's ``get_norm``."""
     if not norm:
         return None
     if norm in ("BN", "SyncBN", "naiveSyncBN", "FrozenBN"):
-        return BatchNorm2d(features, eps=1e-5)
+        return BatchNorm2d(features, eps=1e-5, momentum=0.9,
+                           frozen=norm == "FrozenBN")
     if norm == "GN":
         groups = 32 if features % 32 == 0 else math.gcd(32, features)
         return GroupNorm(max(groups, 1), features, eps=1e-5)

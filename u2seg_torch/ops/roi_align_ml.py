@@ -19,6 +19,14 @@ and the yardstick the kernel is held to on the card.
 ``multilevel_roi_align_kernel`` is the wrapper: for CPU tensors it returns the
 twin; for CUDA tensors it launches ``csrc/roi_align_ml.cu`` or raises. It
 counts its launches in ``multilevel_roi_align_kernel.launches``.
+
+``multilevel_roi_align_train`` is the differentiable pooler of the train
+path (``multilevel_roi_align_train`` of the JAX package): f32 out, gradient
+w.r.t. the levels only. On CUDA tensors it is a ``torch.autograd.Function``
+whose forward is the kernel above and whose backward is the second kernel
+of the same source (the port of the TPU kernel ``_ml_bwd_kernel``), counted
+in ``multilevel_roi_align_backward.launches``; on CPU tensors it is the
+twin under autograd, which is also the backward kernel's plain version.
 """
 from __future__ import annotations
 
@@ -191,15 +199,21 @@ def multilevel_roi_align_ref(
     canonical_level: int = 4,
 ) -> torch.Tensor:
     """Plain version of the kernel (window gather + separable contractions),
-    f32 ``(R, s, s, C)``."""
+    f32 ``(R, s, s, C)``; under autograd also the plain version of the
+    backward kernel."""
     if sampling_ratio <= 0:
         sampling_ratio = 2
-    s, r = output_size, sampling_ratio
     features, strides = _append_virtual_level(features, tuple(strides))
+    return _ref_ext(features, boxes, batch_idx, output_size, strides,
+                    sampling_ratio, canonical_box_size, canonical_level)
+
+
+def _ref_ext(features, boxes, batch_idx, s, strides, r, cbs, cl) -> torch.Tensor:
+    """``multilevel_roi_align_ref`` on a level list that already ends in the
+    virtual level."""
     dims = tuple((f.shape[1], f.shape[2]) for f in features)
-    wy, wx, idx, prep, _ = _ml_geometry(
-        boxes, batch_idx, dims, strides, s, r, canonical_box_size,
-        canonical_level)
+    wy, wx, idx, prep, _ = _ml_geometry(boxes, batch_idx, dims, strides, s, r,
+                                        cbs, cl)
     flat = _pad_pyramid_flat(features, prep["pdims"]).to(torch.float32)
     win = flat[idx]                                     # (R, WIN_Y, WIN, C)
     out = torch.einsum("rni,rijc->rnjc", wy, win)
@@ -231,6 +245,14 @@ def multilevel_roi_align_kernel(
     if sampling_ratio <= 0:
         sampling_ratio = 2
     s, r = output_size, sampling_ratio
+    _check_inputs(features, boxes, batch_idx, s, r, out_dtype)
+    args = prepare_launch(features, boxes, batch_idx, s, r, strides,
+                          canonical_box_size, canonical_level, out_dtype)
+    return launch(args)
+
+
+def _check_inputs(features, boxes, batch_idx, s, r, out_dtype):
+    """Raise on what the kernels do not take."""
     dev = boxes.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -251,10 +273,6 @@ def multilevel_roi_align_kernel(
             or batch_idx.shape != boxes.shape[:1] or batch_idx.device != dev):
         raise ValueError("boxes must be (R, 4) float32 with (R,) batch_idx")
 
-    args = prepare_launch(features, boxes, batch_idx, s, r, strides,
-                          canonical_box_size, canonical_level, out_dtype)
-    return launch(args)
-
 
 @dataclasses.dataclass
 class LaunchArgs:
@@ -273,6 +291,14 @@ def prepare_launch(features, boxes, batch_idx, s, r, strides,
     """The wrapper's device-side prep: virtual level and routing (torch ops on
     the card, as the JAX package runs them outside its kernel)."""
     feats, strides_ext = _append_virtual_level(features, tuple(strides))
+    return _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
+                        canonical_box_size, canonical_level, out_dtype)
+
+
+def _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
+                 canonical_box_size, canonical_level, out_dtype) -> LaunchArgs:
+    """``prepare_launch`` on a level list that already ends in the virtual
+    level."""
     feats = [f.contiguous() for f in feats]
     if any(f.data_ptr() % 8 for f in feats):
         raise ValueError("level storage must be 8-byte aligned")
@@ -288,27 +314,45 @@ def prepare_launch(features, boxes, batch_idx, s, r, strides,
     return LaunchArgs(feats, roi_i, roi_f, out, s, r)
 
 
+def _c_fn(name: str, argtypes):
+    lib = _cuda.load("roi_align_ml")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return lib, fn
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_fn():
-    lib = _cuda.load("roi_align_ml")
-    fn = lib.u2seg_roi_align_ml_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    return lib, fn
+    return _c_fn("u2seg_roi_align_ml_forward",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_fn():
+    return _c_fn("u2seg_roi_align_ml_backward",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+
+
+def _level_tables(levels):
+    nl = len(levels)
+    ptrs = (ctypes.c_int64 * nl)(*[f.data_ptr() for f in levels])
+    hs = (ctypes.c_int * nl)(*[f.shape[1] for f in levels])
+    ws = (ctypes.c_int * nl)(*[f.shape[2] for f in levels])
+    as_ptr = lambda arr: ctypes.cast(arr, ctypes.c_void_p)
+    return as_ptr(ptrs), as_ptr(hs), as_ptr(ws), (ptrs, hs, ws)
 
 
 def launch(a: LaunchArgs) -> torch.Tensor:
     """Launch ``csrc/roi_align_ml.cu`` on the current stream; counts the
     launch in ``multilevel_roi_align_kernel.launches``."""
     lib, fn = _forward_fn()
-    nl = len(a.levels)
-    ptrs = (ctypes.c_int64 * nl)(*[f.data_ptr() for f in a.levels])
-    hs = (ctypes.c_int * nl)(*[f.shape[1] for f in a.levels])
-    ws = (ctypes.c_int * nl)(*[f.shape[2] for f in a.levels])
-    as_ptr = lambda arr: ctypes.cast(arr, ctypes.c_void_p)
+    ptrs, hs, ws, _keep = _level_tables(a.levels)
     n_roi, _, _, c = a.out.shape
-    code = fn(as_ptr(ptrs), as_ptr(hs), as_ptr(ws), nl, a.roi_i.data_ptr(),
+    code = fn(ptrs, hs, ws, len(a.levels), a.roi_i.data_ptr(),
               a.roi_f.data_ptr(), a.out.data_ptr(), n_roi, c, a.s, a.r,
               WIN_Y, WIN, _DTYPE_CODES[a.levels[0].dtype],
               _DTYPE_CODES[a.out.dtype],
@@ -319,3 +363,103 @@ def launch(a: LaunchArgs) -> torch.Tensor:
 
 
 multilevel_roi_align_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The train pooler: kernel forward, kernel backward
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BackwardArgs:
+    """Everything one backward launch reads and writes."""
+    g: torch.Tensor              # (R, s, s, C) f32 contiguous cotangent
+    roi_i: torch.Tensor          # as LaunchArgs
+    roi_f: torch.Tensor
+    grads: List[torch.Tensor]    # f32 (B, H_l, W_l, C) per extended level
+    s: int
+    r: int
+
+
+def prepare_backward(g, roi_i, roi_f, shapes, s, r) -> BackwardArgs:
+    """Allocate the f32 gradient levels at their true dims (the launch zeroes
+    them) and bring the cotangent to contiguous f32."""
+    if g.device.type != "cuda" or g.shape != (roi_i.shape[0], s, s, shapes[0][3]):
+        raise ValueError("cotangent must be a CUDA tensor of shape (R, s, s, C)")
+    g = g.to(torch.float32).contiguous()
+    grads = [torch.empty(sh, dtype=torch.float32, device=g.device)
+             for sh in shapes]
+    if g.data_ptr() % 8 or any(t.data_ptr() % 8 for t in grads):
+        raise ValueError("cotangent and gradient storage must be 8-byte aligned")
+    return BackwardArgs(g, roi_i, roi_f, grads, s, r)
+
+
+def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
+    """Launch the backward kernel of ``csrc/roi_align_ml.cu`` on the current
+    stream: zero ``a.grads``, then add every ROI's window cotangent into
+    them. Counts the launch in ``multilevel_roi_align_backward.launches``."""
+    lib, fn = _backward_fn()
+    ptrs, hs, ws, _keep = _level_tables(a.grads)
+    n_roi, _, _, c = a.g.shape
+    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0],
+              a.roi_i.data_ptr(), a.roi_f.data_ptr(), a.g.data_ptr(), n_roi, c,
+              a.s, a.r, WIN_Y, WIN,
+              torch.cuda.current_stream(a.g.device).cuda_stream)
+    _cuda.check(lib, code, "roi_align_ml backward launch")
+    multilevel_roi_align_backward.launches += 1
+    return a.grads
+
+
+multilevel_roi_align_backward.launches = 0
+
+
+class _TrainPooler(torch.autograd.Function):
+    """Kernel forward on the EXTENDED level list (the caller appended the
+    virtual level, so autograd carries its gradient back through the 2x
+    average pool); kernel backward w.r.t. the levels; boxes and batch index
+    get no gradient. The map is linear in the levels, so the backward needs
+    no residual but the routing."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_idx, s, r, strides_ext, cbs, cl, *levels):
+        a = _prepare_ext(levels, boxes, batch_idx, s, r, strides_ext, cbs, cl,
+                         torch.float32)
+        ctx.save_for_backward(a.roi_i, a.roi_f)
+        ctx.meta = (s, r, [tuple(f.shape) for f in levels], levels[0].dtype)
+        return launch(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        roi_i, roi_f = ctx.saved_tensors
+        s, r, shapes, dtype = ctx.meta
+        grads = multilevel_roi_align_backward(
+            prepare_backward(g, roi_i, roi_f, shapes, s, r))
+        return (None,) * 7 + tuple(t.to(dtype) for t in grads)
+
+
+def multilevel_roi_align_train(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    batch_idx: torch.Tensor,
+    output_size: int,
+    strides: Sequence[int],
+    sampling_ratio: int = 2,
+    canonical_box_size: float = 224.0,
+    canonical_level: int = 4,
+) -> torch.Tensor:
+    """Differentiable pooler for training -> f32 (R, s, s, C).
+
+    CPU tensors take the twin under autograd. CUDA tensors launch the
+    forward kernel and, in the backward pass, the backward kernel; any input
+    the kernels do not take raises."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align_ref(
+            features, boxes, batch_idx, output_size, strides, sampling_ratio,
+            canonical_box_size, canonical_level)
+    if sampling_ratio <= 0:
+        sampling_ratio = 2
+    _check_inputs(features, boxes, batch_idx, output_size, sampling_ratio,
+                  torch.float32)
+    feats, strides_ext = _append_virtual_level(features, tuple(strides))
+    return _TrainPooler.apply(boxes, batch_idx, output_size, sampling_ratio,
+                              strides_ext, canonical_box_size, canonical_level,
+                              *feats)

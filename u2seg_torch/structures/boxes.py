@@ -62,6 +62,31 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, iou, torch.zeros_like(iou))
 
 
+def get_deltas(
+    src_boxes: torch.Tensor,
+    target_boxes: torch.Tensor,
+    weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Encode target boxes relative to source boxes as (dx, dy, dw, dh).
+    Degenerate sides are floored at 1e-6; callers mask invalid rows."""
+    src_w = torch.clamp(src_boxes[..., 2] - src_boxes[..., 0], min=1e-6)
+    src_h = torch.clamp(src_boxes[..., 3] - src_boxes[..., 1], min=1e-6)
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = torch.clamp(target_boxes[..., 2] - target_boxes[..., 0], min=1e-6)
+    tgt_h = torch.clamp(target_boxes[..., 3] - target_boxes[..., 1], min=1e-6)
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    dx = wx * (tgt_cx - src_cx) / src_w
+    dy = wy * (tgt_cy - src_cy) / src_h
+    dw = ww * torch.log(tgt_w / src_w)
+    dh = wh * torch.log(tgt_h / src_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def apply_deltas(
     deltas: torch.Tensor,
     boxes: torch.Tensor,
