@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,serve,cpu,train,train_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,train,train_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -35,6 +35,37 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    (kernels) against the CPU (plain versions), with sampling sizes that take
    every candidate so that no random draw matters: losses, gradients and the
    updated BN statistics.
+
+8. k4: the single-level window ROIAlign kernel against its plain version on
+   one level of the serving path (p3 of an 800x1216 image: 100x152, C=256):
+   R=1000 boxes that fit the 40 x 40 window plus budget-edge boxes, one
+   over-long box, degenerate zero boxes, and R=0; s=7 and s=14, r=2; f32
+   (TF32 off, 1e-4 * max(1, max|plain|)) and bf16 maps (rtol 0.05, atol
+   0.03); kernel, wrapper, plain and gather-pooler times and the byte bound.
+   No model path reaches this kernel (in the JAX package neither): its
+   "path" is two calls of the public wrapper at these shapes, counted apart
+   from the comparison launches;
+9. k5: the two window-read probe kernels against their plain version at
+   N=512 windows per shape, then ``profile_window_read.time_shapes`` (the
+   probe's own path: five window shapes, N=8000) in ms and GB/s;
+10. eval: ``DefaultPredictor`` at full width: 8 numpy-drawn uint8 scenes
+   (480x640, 427x640, 640x480, 500x375, twice) through
+   ``run_batched(batch_size=4)`` with the host render, with
+   ``device_render=True`` and with ``device_resize=True`` too. Fails unless:
+   (the fusion threshold, the fusion budget and the run budgets are set
+   from calibration passes: seeded weights score low and unevenly and draw
+   noisy semantic maps);
+   4 forward-kernel launches per batch; one device-to-host copy per batch
+   and no fallback on the device paths; device render == host render per
+   image (semantic and panoptic maps on >= 99.9% of pixels, segment ids,
+   kinds, categories and instance references equal); the device resize ==
+   the host resize to 0.05 on 0..255; an image larger than the canvas takes
+   the fallback and equals the host render exactly. Prints images/s, the
+   stages of one batch, fetched bytes per image, launches per batch and
+   peak memory;
+11. eval_cpu: the tiny config in f32 through the predictor on the card
+   (kernels) and on the CPU (plain versions), ``device_render=True,
+   device_resize=True``: records, maps and segment tables.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -773,8 +804,521 @@ def phase_train_cpu_parity(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the single-level window ROIAlign kernel (K4)
+# ---------------------------------------------------------------------------
+
+K4_HW, K4_STRIDE = (100, 152), 8        # p3 of an 800x1216 image
+
+
+def k4_boxes(rng, n: int) -> torch.Tensor:
+    """Boxes for the 40 x 40 window at stride 8: an x span <= 29 cells (232
+    px) and a y span <= 36 cells always fit; ``edge`` sits on and around
+    those budgets."""
+    h, w = K4_HW[0] * K4_STRIDE, K4_HW[1] * K4_STRIDE
+    edge = np.array([
+        [63.0, 40.0, 63.0 + 232.0, 200.0],     # x span exactly 29 cells, origin 7 off alignment
+        [16.0, 8.0, 120.0, 8.0 + 288.0],       # y span exactly 36 cells
+        [63.0, 40.0, 63.0 + 248.0, 200.0],     # x span 31 cells: one past the budget
+        [100.0, 100.0, 500.0, 420.0],          # over-long: 50 x 40 cells
+        [0.0, 0.0, 0.0, 0.0],                  # zero box
+        [300.0, 300.0, 300.0, 300.0],          # zero size
+        [w - 100.0, h - 90.0, w + 60.0, h + 40.0],   # past the map's corner
+        [w - 200.0, h - 200.0, w - 8.0, h - 8.0],    # origin clipped at the far corner
+        [12.5, 7.25, 44.75, 39.5],             # small, fractional
+    ], np.float32)
+    m = n - len(edge)
+    bw = np.exp(rng.uniform(np.log(8), np.log(230), m))
+    bh = np.exp(rng.uniform(np.log(8), np.log(230), m))
+    x0, y0 = rng.rand(m) * (w - bw), rng.rand(m) * (h - bh)
+    rand = np.stack([x0, y0, x0 + bw, y0 + bh], 1).astype(np.float32)
+    return torch.from_numpy(np.concatenate([edge, rand])), len(edge)
+
+
+def k4_work(ras, feat, boxes, s, r, scale, in_bytes):
+    """Bytes (touched map cells read once, f32 output written once, ROI
+    inputs) and flops (2 per non-zero tap weight pair, per channel)."""
+    _, h, w, c = feat.shape
+    meta, origin = ras._prep(boxes, h, w, s, r, scale)
+    wy = ras._axis_weights(meta[:, 0], meta[:, 2], h, origin[:, 0], s, r)
+    wx = ras._axis_weights(meta[:, 1], meta[:, 3], w, origin[:, 1], s, r)
+    cells = torch.arange(ras.WIN, device=boxes.device)
+    idx = ((origin[:, 0].long()[:, None] + cells)[:, :, None] * w
+           + (origin[:, 1].long()[:, None] + cells)[:, None, :])
+    touched = (wy != 0).any(1)[:, :, None] & (wx != 0).any(1)[:, None, :]
+    n_cells = torch.unique(idx[touched]).numel()
+    n_roi = boxes.shape[0]
+    nbytes = n_cells * c * in_bytes + n_roi * s * s * c * 4 + n_roi * 20
+    ny = (wy != 0).sum(-1).reshape(n_roi, s, r).sum(-1).float()
+    nx = (wx != 0).sum(-1).reshape(n_roi, s, r).sum(-1).float()
+    flops = float((ny[:, :, None] * nx[:, None, :]).sum()) * 2 * c
+    return nbytes, flops
+
+
+def phase_k4(dev):
+    from u2seg_torch.ops import roi_align_single as ras
+    from u2seg_torch.ops.roi_align import roi_align
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (h, w), c, scale, r = K4_HW, 256, 1.0 / K4_STRIDE, 2
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = torch.randn(1, h, w, c, generator=gen, device=dev)
+    rng = np.random.RandomState(5)
+    results = {}
+    for s, n in ((7, 1000), (14, 1000)):
+        boxes, n_edge = k4_boxes(rng, n)
+        boxes = boxes.to(dev)
+        bidx = torch.zeros(n, dtype=torch.int32, device=dev)
+        rec = {"s": s, "R": n}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            feat = base.to(dtype)
+            before = ras.roi_align_single.launches
+            got = ras.roi_align_single(feat, boxes, bidx, s, scale, r)
+            if ras.roi_align_single.launches != before + 1:
+                raise AssertionError("the K4 wrapper did not launch its kernel")
+            ref = ras.roi_align_single_ref(feat, boxes, bidx, s, scale, r)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            top = float(ref.abs().max())
+            if dtype == torch.float32:
+                ok = bool((err <= F32_TOL * max(top, 1.0)).all())
+                tol = f"{F32_TOL:g} * max(1, max|plain|)"
+            else:
+                ok = bool((err <= AMP_ATOL + AMP_RTOL * ref.abs()).all())
+                tol = f"atol {AMP_ATOL} + rtol {AMP_RTOL}"
+            ok = ok and got.dtype == torch.float32 and got.shape == (n, s, s, c)
+            # the over-long box (index 3, 50 cells wide) lost its far columns,
+            # as it does in the TPU kernel
+            ok = ok and float(got[3, :, -1].abs().max()) == 0.0 and float(got[3, :, 0].abs().max()) > 0
+            rec[f"max_abs_err_{name}"] = float(err.max())
+            rec[f"edge_err_{name}"] = float(err[:n_edge].max())
+            log(f"[k4] s={s} R={n} {name} map: max|kernel-plain|={float(err.max()):.3e} "
+                f"(edge boxes {rec[f'edge_err_{name}']:.3e}, max|plain|={top:.3f}, tol {tol}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K4 disagrees with its plain version ({name}, s={s})")
+        feat = base.to(torch.bfloat16)
+        empty = ras.roi_align_single(feat, boxes[:0], bidx[:0], s, scale, r)
+        if empty.shape != (0, s, s, c):
+            raise AssertionError("K4 with R=0 returned a wrong shape")
+        # timing at the serving path's dtype: bf16 map, f32 out
+        meta, origin = ras._prep(boxes, h, w, s, r, scale)
+        rec["ms"] = cuda_ms(lambda: ras.launch(feat, origin, bidx, meta, s, r), iters=50)
+        rec["wrapper_ms"] = cuda_ms(lambda: ras.roi_align_single(
+            feat, boxes, bidx, s, scale, r), iters=20)
+        rec["plain_ms"] = cuda_ms(lambda: ras.roi_align_single_ref(
+            feat, boxes, bidx, s, scale, r), iters=3, warmup=1)
+        rec["gather_ms"] = cuda_ms(lambda: roi_align(
+            feat, boxes, bidx, s, scale, r), iters=5, warmup=1)
+        nbytes, flops = k4_work(ras, feat, boxes, s, r, scale, 2)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[k4] s={s} R={n} bf16 map timing: kernel {rec['ms']:.4f} ms, wrapper "
+            f"(prep+kernel) {rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+            f"plain gather pooler (ops/roi_align.py, other semantics for boxes past the "
+            f"window) {rec['gather_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"library call: none (torchvision is not installed)")
+        results[s] = rec
+    # the kernel's "path": no model path reaches it (in the JAX package only a
+    # test calls it), so its path is the public wrapper at these shapes
+    ras.roi_align_single.launches = 0                     # the path starts
+    for s in (7, 14):
+        out = ras.roi_align_single(feat, boxes, bidx, s, scale, r)
+    torch.cuda.synchronize()
+    results["launches"] = ras.roi_align_single.launches   # the path ends
+    if results["launches"] != 2 or not bool(torch.isfinite(out).all()):
+        raise AssertionError("K4's wrapper path did not launch twice")
+    log(f"[k4] wrapper path (s=7, s=14 on p3): {results['launches']} launches; "
+        f"0 per forward and 0 per train step (no model path calls this kernel)")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the window-read probe kernels (K5)
+# ---------------------------------------------------------------------------
+
+def phase_k5(dev):
+    from u2seg_torch.dev import profile_window_read as probe
+
+    feat = probe.make_map(0, dev)
+    bsz, h, w, c = feat.shape
+    rng = np.random.RandomState(6)
+    errs = {"3d": 0.0, "flat": 0.0}
+    for name, mode, wy, wx in probe.SHAPES:
+        oy, ox, b = probe.make_origins(rng, 512, feat.shape, wy, wx, mode, dev)
+        if mode == "3d":
+            ox = ox + 5              # the kernel aligns the origin down itself
+        got = probe.window_sum(feat, oy, ox, b, wy, wx, mode)
+        ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = (got.shape == (64, 8, 128)
+              and bool(torch.isclose(got, ref, rtol=1e-5, atol=1e-3).all()))
+        errs[mode] = max(errs[mode], err)
+        log(f"[k5] {name}: N=512, all 64 rows max|kernel-plain|={err:.3e} at max|plain| "
+            f"{float(ref.abs().max()):.1f} (tol rtol 1e-5 + atol 1e-3: f32 sums in "
+            f"another order) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 {mode} disagrees with its plain version ({name})")
+    probe.window_sum.launches = {"3d": 0, "flat": 0}      # the probe's path starts
+    rows = probe.time_shapes(feat)
+    launches = dict(probe.window_sum.launches)            # the probe's path ends
+    rng = np.random.RandomState(0)
+    for row in rows:
+        oy, ox, b = probe.make_origins(rng, probe.NUM_WINDOWS, feat.shape,
+                                       row["wy"], row["wx"], row["mode"], dev)
+        cells = ((b.long()[:, None, None] * h + oy.long()[:, None, None]
+                  + torch.arange(row["wy"], device=dev)[None, :, None]) * w
+                 + ox.long()[:, None, None]
+                 + torch.arange(row["wx"], device=dev)[None, None, :])
+        seen = torch.zeros(bsz * h * w, dtype=torch.bool, device=dev)
+        seen[cells.reshape(-1)] = True
+        n_out = probe.NUM_WINDOWS // probe.GROUP * probe.SLOTS * 4
+        nbytes = int(seen.sum()) * c * 2 + n_out + probe.NUM_WINDOWS * 12
+        flops = probe.NUM_WINDOWS * row["wy"] * row["wx"] * c
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        row["plain_ms"] = cuda_ms(lambda: probe.window_sum_ref(
+            feat, oy, ox, b, row["wy"], row["wx"], row["mode"]), iters=1, warmup=1)
+        row.update(distinct_bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[k5] {row['name']:24s} N={probe.NUM_WINDOWS}: {row['ms']:.4f} ms, "
+            f"{row['gb_per_s']:.1f} GB/s of window bytes ({row['bytes'] / 1e9:.2f} GB; "
+            f"{nbytes / 1e6:.1f} MB distinct -> bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}), plain {row['plain_ms']:.2f} ms")
+    log(f"[k5] probe path launches: {launches}; 0 per forward and 0 per train step "
+        f"(a dev probe); library call: none")
+    if min(launches.values()) < 1:
+        raise AssertionError("a probe kernel was never launched by the probe's path")
+    return dict(rows=rows, launches=launches, max_abs_err=errs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10 / 11: the eval path
+# ---------------------------------------------------------------------------
+
+EVAL_SIZES = [(480, 640), (427, 640), (640, 480), (500, 375)] * 2
+EVAL_MODES = {"host": {}, "device_render": {"device_render": True},
+              "device_resize": {"device_render": True, "device_resize": True}}
+
+
+def segment_keys(segments):
+    return [(s["id"], s["isthing"], s["category_id"], s.get("instance_id"))
+            for s in segments]
+
+
+def map_agreement(a: dict, b: dict):
+    return (float((a["sem_seg"] == b["sem_seg"]).mean()),
+            float((a["panoptic"] == b["panoptic"]).mean()))
+
+
+def staged_batch(pred, images, raw: bool):
+    """One batch through the predictor's stages, with a synchronise after
+    each: ms of prepare (host), upload, [device resize +] forward, render +
+    pack, fetch (one copy), decode (host)."""
+    t = {}
+    sync = torch.cuda.synchronize
+
+    def lap(name, t0):
+        sync()
+        t[name] = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    prep = [pred._prepare_raw(im) if raw else pred._prepare(im) for im in images]
+    lap("prepare", t0)
+    t0 = time.perf_counter()
+    stack = pred._upload(np.stack([p[0] for p in prep]))
+    sizes = pred._upload(np.array([p[1] for p in prep], np.int32))
+    osizes = pred._upload(np.array([p[2] for p in prep], np.int32))
+    lap("upload", t0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if raw:
+            from u2seg_torch.engine.device_render import resize_image_device
+            stack = torch.stack([resize_image_device(stack[i], osizes[i], sizes[i],
+                                                     prep[0][3])
+                                 for i in range(len(images))])
+        out = pred._fwd(stack, sizes)
+    lap("forward", t0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tail = pred._render_tail(out, sizes, osizes)
+    lap("render_pack", t0)
+    t0 = time.perf_counter()
+    host = tail[0].cpu()
+    lap("fetch", t0)
+    group = [(i, p[0], p[1], p[2]) for i, p in enumerate(prep)]
+    t0 = time.perf_counter()
+    results = list(pred._drain_rendered(group, len(images), tail))
+    lap("decode", t0)
+    t["decode"] = max(t["decode"] - t["fetch"], 0.0)   # the drain fetched again
+    t["fetch_bytes"] = int(host.numel())
+    return t, (stack, out, sizes, osizes), results
+
+
+def count_launches(fn, iters: int = 1):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kernels) / iters,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / iters)
+
+
+def phase_eval(dev):
+    from u2seg_torch.config import Config
+    from u2seg_torch.engine.device_render import resize_image_device
+    from u2seg_torch.engine.predictor import DefaultPredictor
+    from u2seg_torch.models.build import build_model
+    from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+
+    cfg = Config()
+    pred = DefaultPredictor(cfg, model=calibrate(build_model(cfg, device=dev, seed=0)))
+    if pred.device.type != "cuda":
+        raise AssertionError("the predictor does not run on the card")
+    rng = np.random.RandomState(4)
+    imgs = [scene(rng, h, w).astype(np.uint8) for h, w in EVAL_SIZES]
+    bs = 4
+    n_batches = 2          # 4 wide + 4 tall images: one batch per bucket
+
+    # Calibration, as for the class scores: seeded weights put no averaged
+    # score above the default fusion threshold of 0.5, spread them unevenly
+    # over the images, and draw semantic argmax maps far noisier than a
+    # trained model's. (1) The fusion budget is the detection cap (100, default
+    # 50), so no image can exceed it and fall back, however its scores lie.
+    # (2) A pass with the threshold out of reach and run budgets no map can
+    # exceed gives the scores of these very batches; the threshold becomes
+    # their median. (3) A second pass finds the high-water mark of runs per
+    # batch; the fetched prefix covers it with a quarter to spare, so the
+    # common case stays one copy per batch.
+    cfg.test.render_k_fuse = cfg.model.roi_heads.detections_per_image
+    cfg.model.panoptic.instance_conf_thresh = 2.0
+    cfg.test.render_max_runs, cfg.test.fetch_runs_per_image = 1 << 18, 1 << 19
+    first = dict(pred.run_batched(enumerate(imgs), bs, device_render=True))
+    scores = np.concatenate([r["instances"]["scores"] for r in first.values()])
+    thresh = float(np.median(scores))
+    cfg.model.panoptic.instance_conf_thresh = thresh
+    log(f"[eval] instance_conf_thresh set to {thresh:.4f} (median of {len(scores)} "
+        f"detection scores; default 0.5), render_k_fuse to {cfg.test.render_k_fuse} "
+        f"(default {Config().test.render_k_fuse}); eligible per image "
+        f"{[int((r['instances']['scores'] >= thresh).sum()) for r in first.values()]}")
+    out = pred._fwd(*[pred._upload(a) for a in (
+        pred._prepare(imgs[0])[0][None], np.array([[800, 1067]], np.int32))])
+    if out.sem_seg_logits.dtype != torch.float32 or out.detections.mask_logits is None:
+        raise AssertionError("forward(combine=False) lacks what the render needs")
+    pred.fetch_stats = {"fetches": 0, "bytes": 0}
+    list(pred.run_batched(enumerate(imgs), bs, device_render=True))
+    high = pred.fetch_stats["runs_max_batch"]
+    per_image = -(-int(high * 1.25 / bs) // 1024) * 1024
+    cfg.test.fetch_runs_per_image = per_image
+    cfg.test.render_max_runs = max(Config().test.render_max_runs, per_image)
+    log(f"[eval] most runs in one batch of {bs}: {high}; fetch_runs_per_image set to "
+        f"{per_image} (default {Config().test.fetch_runs_per_image}), render_max_runs "
+        f"to {cfg.test.render_max_runs} (default {Config().test.render_max_runs})")
+    pred.fetch_stats = {"fetches": 0, "bytes": 0}
+    for mode in ("device_render", "device_resize"):
+        list(pred.run_batched(enumerate(imgs), bs, **EVAL_MODES[mode]))
+    torch.cuda.synchronize()
+
+    res, rows = {}, {}
+    for mode, kw in EVAL_MODES.items():
+        stats0 = dict(pred.fetch_stats)
+        k1.launches = 0                                   # the main path starts
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[mode] = dict(pred.run_batched(enumerate(imgs), bs, **kw))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = k1.launches                            # the main path ends
+        d = {k: pred.fetch_stats.get(k, 0) - stats0.get(k, 0)
+             for k in ("fetches", "bytes", "fallbacks", "runs")}
+        row = dict(images_per_s=len(imgs) / sec, seconds=sec, k1_launches=launches,
+                   peak_mib=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+                   runs_max_batch=pred.fetch_stats.get("runs_max_batch", 0), **d)
+        rows[mode] = row
+        log(f"[eval] {mode}: {len(imgs)} images in {sec:.3f} s = {row['images_per_s']:.2f} "
+            f"images/s; forward-kernel launches {launches} over {n_batches} batches; "
+            f"device-to-host copies {d['fetches']}, {d['bytes'] / len(imgs):.0f} bytes "
+            f"per image, {d['runs']} runs (largest batch so far "
+            f"{row['runs_max_batch']} of a {bs * cfg.test.fetch_runs_per_image} prefix), "
+            f"fallbacks {d['fallbacks']}; peak memory {row['peak_mib']:.0f} MiB")
+        if sorted(res[mode]) != list(range(len(imgs))):
+            raise AssertionError(f"{mode}: results missing")
+        if launches != 4 * n_batches:
+            raise AssertionError(f"{mode}: expected {4 * n_batches} K1 launches, got {launches}")
+        if mode != "host" and (d["fetches"] != n_batches or d["fallbacks"]):
+            raise AssertionError(f"{mode}: {d['fetches']} copies for {n_batches} batches, "
+                                 f"{d['fallbacks']} fallbacks")
+
+    # device render == host render, per image
+    worst = [1.0, 1.0]
+    n_things = n_stuff = 0
+    for i in range(len(imgs)):
+        host, devr = res["host"][i], res["device_render"][i]
+        sem_ok, pan_ok = map_agreement(host, devr)
+        worst = [min(worst[0], sem_ok), min(worst[1], pan_ok)]
+        same = segment_keys(host["segments"]) == segment_keys(devr["segments"])
+        n_things += sum(s["isthing"] for s in host["segments"])
+        n_stuff += sum(not s["isthing"] for s in host["segments"])
+        finite = (host["sem_seg"].shape == EVAL_SIZES[i] == devr["panoptic"].shape
+                  and np.isfinite(devr["instances"]["boxes"]).all()
+                  and len(devr["instances"]["scores"]) > 0)
+        if not (sem_ok >= 0.999 and pan_ok >= 0.999 and same and finite):
+            raise AssertionError(f"image {i}: device render != host render (sem {sem_ok:.5f}, "
+                                 f"pan {pan_ok:.5f}, segments equal {same})")
+    log(f"[eval] device render vs host render over 8 images: semantic maps equal on >= "
+        f"{worst[0]:.5f} of pixels, panoptic maps on >= {worst[1]:.5f} (tol 0.999), segment "
+        f"tables equal; {n_things} thing and {n_stuff} stuff segments painted ok")
+    if n_things == 0 or n_stuff == 0:
+        raise AssertionError("the scenes painted no thing or no stuff segment")
+
+    # device resize: the resize itself against the host's, then the results
+    resize_err = 0.0
+    for im in imgs[:4]:
+        padded, hw, ohw = pred._prepare(im)
+        raw, hw2, _, bucket = pred._prepare_raw(im)
+        got = resize_image_device(
+            pred._upload(raw), pred._upload(np.array(ohw, np.int32)),
+            pred._upload(np.array(hw2, np.int32)), bucket).cpu().numpy()
+        if hw2 != hw or got.shape != padded.shape:
+            raise AssertionError("device and host resize disagree on shapes")
+        resize_err = max(resize_err, float(np.abs(got - padded).max()))
+    agree = [map_agreement(res["device_render"][i], res["device_resize"][i])
+             for i in range(len(imgs))]
+    log(f"[eval] device resize vs host resize: max|diff| {resize_err:.2e} on 0..255 (tol "
+        f"0.05: f32 sample coordinates up to 1344, ~1e-4 px off the host's float64 "
+        f"ones, across edges of up to 255 per px); results vs device_render mode: semantic maps equal on >= "
+        f"{min(a[0] for a in agree):.4f} of pixels (tol 0.95: bf16 trunk on inputs that "
+        f"differ by f32 rounding; panoptic ids are not compared here: one more or "
+        f"less painted instance renumbers every later segment)")
+    if resize_err > 0.05 or min(a[0] for a in agree) < 0.95:
+        raise AssertionError("device resize disagrees with the host resize")
+
+    # run_batched vs __call__ (b=1: other cuDNN algorithms in bf16)
+    call_agree = []
+    for i in (0, 2):
+        single = pred(imgs[i])
+        call_agree.append(map_agreement(single, res["host"][i]))
+        if len(single["instances"]["scores"]) != len(res["host"][i]["instances"]["scores"]):
+            raise AssertionError("__call__ and run_batched disagree on the detections")
+    log(f"[eval] __call__ (b=1) vs run_batched (b=4), host render: semantic maps equal on "
+        f">= {min(a[0] for a in call_agree):.4f} of pixels (tol 0.95)")
+    if min(a[0] for a in call_agree) < 0.95:
+        raise AssertionError("__call__ disagrees with run_batched")
+
+    # an image larger than the canvas takes the fallback and equals the host render
+    big = scene(np.random.RandomState(9), 700, 900).astype(np.uint8)
+    f0 = pred.fetch_stats.get("fallbacks", 0)
+    (_, via_dev), = list(pred.run_batched([("big", big)], bs, device_render=True,
+                                          device_resize=True))
+    (_, via_host), = list(pred.run_batched([("big", big)], bs))
+    fell = pred.fetch_stats.get("fallbacks", 0) - f0
+    same = (np.array_equal(via_dev["sem_seg"], via_host["sem_seg"])
+            and np.array_equal(via_dev["panoptic"], via_host["panoptic"])
+            and via_dev["segments"] == via_host["segments"])
+    log(f"[eval] 700x900 image (canvas {tuple(cfg.test.render_canvas)}): fallbacks {fell}, "
+        f"equal to the host render {same}")
+    if fell != 1 or not same:
+        raise AssertionError("the over-canvas image did not take the exact fallback")
+
+    # the stages of one batch, serial, and launches per batch
+    stages = {}
+    wide = [imgs[0], imgs[1], imgs[4], imgs[5]]          # one bucket: 800x1344
+    for mode, raw in (("device_render", False), ("device_resize", True)):
+        staged_batch(pred, wide, raw)
+        t, (stack, out, sizes, osizes), _ = staged_batch(pred, wide, raw)
+        total = sum(v for k, v in t.items() if k != "fetch_bytes")
+        stages[mode] = dict(t, total_ms=total)
+        log(f"[eval] {mode}, one batch of 4 (800x1344), stages run one after another: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items() if k != "fetch_bytes")
+            + f"; sum {total:.1f} ms = {4e3 / total:.2f} images/s serial, against "
+            f"{rows[mode]['images_per_s']:.2f} images/s pipelined; fetched "
+            f"{t['fetch_bytes'] / 4:.0f} bytes per image")
+    fwd_n, fwd_ms = count_launches(lambda: pred._fwd(stack, sizes))
+    with torch.no_grad():
+        ren_n, ren_ms = count_launches(lambda: pred._render_tail(out, sizes, osizes))
+    log(f"[eval] kernel launches per batch of 4: forward {fwd_n:.0f} ({fwd_ms:.1f} ms of "
+        f"device kernels), render + RLE + pack {ren_n:.0f} ({ren_ms:.1f} ms)")
+    return dict(modes=rows, stages=stages, thresh=thresh,
+                launches_per_batch=dict(forward=fwd_n, render=ren_n,
+                                        forward_device_ms=fwd_ms, render_device_ms=ren_ms),
+                device_vs_host=dict(sem=worst[0], pan=worst[1]),
+                resize_err=resize_err, things=n_things, stuff=n_stuff)
+
+
+def phase_eval_cpu(dev):
+    """The tiny config in f32 (TF32 off) through ``run_batched(device_render=True,
+    device_resize=True)`` on the card (kernels) and on the CPU (plain versions),
+    same seed, same images. Tolerances: boxes of matching records within 0.5 px and
+    classes equal on >= 90% of the CPU's records (proposal ties move a few, as in
+    the ``cpu`` phase); semantic maps equal on >= 99% of pixels, panoptic on >= 98%;
+    segment (kind, category) lists equal on >= 3 of the 4 images."""
+    from u2seg_torch.engine.predictor import DefaultPredictor
+    from u2seg_torch.testing import tiny_spmd_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_spmd_config()
+    cfg.model.roi_heads.pooler_impl = "pallas"
+    cfg.model.panoptic.instance_conf_thresh = 0.1
+    cfg.model.panoptic.stuff_area_limit = 64
+    cfg.input.min_size_test, cfg.input.max_size_test = 64, 128
+    cfg.input.pad_buckets = ((64, 128), (128, 64))
+    cfg.test.render_canvas = (80, 80)
+    cfg.test.render_max_runs = 8192
+    cfg.test.raw_buckets = ((80, 80),)
+    rng = np.random.RandomState(7)
+    imgs = [scene(rng, h, w).astype(np.uint8) for h, w in ((40, 80), (80, 40)) * 2]
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        pred = DefaultPredictor(cfg, device=device)
+        out[name] = dict(pred.run_batched(enumerate(imgs), 2, device_render=True,
+                                          device_resize=True))
+        if pred.fetch_stats.get("fallbacks", 0):
+            raise AssertionError(f"{name}: an image took the fallback")
+    det_ok = det_n = seg_same = 0
+    sem_ok, pan_ok = [], []
+    for i in range(len(imgs)):
+        c, g = out["cpu"][i], out["gpu"][i]
+        cb, gb = c["instances"]["boxes"], g["instances"]["boxes"]
+        cc, gc = c["instances"]["classes"], g["instances"]["classes"]
+        for j in range(len(cb)):
+            d = np.where(gc == cc[j], np.abs(gb - cb[j]).max(-1), np.inf)
+            det_ok += bool(len(d) and d.min() < 0.5)
+        det_n += len(cb)
+        a, b = map_agreement(c, g)
+        sem_ok.append(a)
+        pan_ok.append(b)
+        seg_same += ([(s["isthing"], s["category_id"]) for s in c["segments"]]
+                     == [(s["isthing"], s["category_id"]) for s in g["segments"]])
+    kinds = [s["isthing"] for r in out["cpu"].values() for s in r["segments"]]
+    res = dict(det_agree=det_ok / max(det_n, 1), detections=det_n, sem=min(sem_ok),
+               pan=min(pan_ok), segments_equal=seg_same, things=sum(kinds),
+               stuff=len(kinds) - sum(kinds))
+    log(f"[eval-cpu] tiny config f32, card vs CPU through the predictor: records agreeing "
+        f"(class, box < 0.5 px) {res['det_agree']:.4f} of {det_n} (tol 0.9); semantic maps "
+        f"equal on >= {res['sem']:.4f} of pixels (tol 0.99), panoptic >= {res['pan']:.4f} "
+        f"(tol 0.98); segment lists equal on {seg_same} of {len(imgs)} images (tol 3); "
+        f"{res['things']} thing and {res['stuff']} stuff segments on the CPU")
+    if not (det_n > 0 and res["det_agree"] >= 0.9 and res["sem"] >= 0.99
+            and res["pan"] >= 0.98 and seg_same >= 3):
+        raise AssertionError(f"card and CPU predictors disagree: {res}")
+    return res
+
+
 def main():
-    all_phases = ["k1", "k3", "serve", "cpu", "train", "train_cpu"]
+    all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
+                  "train", "train_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -794,9 +1338,9 @@ def main():
         f"{torch.__version__} CUDA {torch.version.cuda} | count "
         f"{torch.cuda.device_count()}")
     t_start = time.perf_counter()
-    paths = _cuda.build(["roi_align_ml"])
+    paths = _cuda.build(["roi_align_ml", "roi_align_single", "window_probe"])
     build_s = time.perf_counter() - t_start
-    log(f"[build] {len(paths)} kernel library built in {build_s:.1f} s")
+    log(f"[build] {len(paths)} kernel libraries built in {build_s:.1f} s")
     for name, p in paths.items():
         if os.path.exists(p + ".log"):
             with open(p + ".log") as f:
@@ -809,6 +1353,11 @@ def main():
         report["kernel"] = phase_kernel(dev)
     if "k3" in phases:
         report["kernel_backward"] = phase_kernel_backward(dev)
+    if "k4" in phases:
+        report["k4"] = phase_k4(dev)
+    if "k5" in phases:
+        report["k5"] = phase_k5(dev)
+        torch.cuda.empty_cache()
     if "serve" in phases:
         rows, launches, model, reqs = phase_slice(dev)
         report.update(slice=rows, launches=launches, profile=[
@@ -816,6 +1365,12 @@ def main():
         del model, reqs
     if "cpu" in phases:
         report["cpu_parity"] = phase_cpu_parity(dev)
+    if "eval" in phases:
+        torch.cuda.empty_cache()
+        report["eval"] = phase_eval(dev)
+        torch.cuda.empty_cache()
+    if "eval_cpu" in phases:
+        report["eval_cpu"] = phase_eval_cpu(dev)
     if "train" in phases:
         torch.cuda.empty_cache()
         report["train"] = phase_train(dev)
@@ -826,9 +1381,13 @@ def main():
 
     if phases == all_phases:
         k1, k3, tr = report["kernel"], report["kernel_backward"], report["train"]
-        fwd_launches = report["launches"] + tr["forward_launches"]
-        if min(report["launches"], tr["forward_launches"], tr["backward_launches"]) < 1:
+        k4, k5, ev = report["k4"], report["k5"], report["eval"]
+        eval_launches = sum(m["k1_launches"] for m in ev["modes"].values())
+        fwd_launches = report["launches"] + eval_launches + tr["forward_launches"]
+        if min(report["launches"], eval_launches, tr["forward_launches"],
+               tr["backward_launches"], k4["launches"], *k5["launches"].values()) < 1:
             raise AssertionError("a kernel of a main path was never launched")
+        probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes
         report["record"] = {"kernels": [{
             "name": "roi_align_ml",
             "route": "cuda",
@@ -853,7 +1412,31 @@ def main():
             "bound_ms": k3[7]["bound_ms"],
             "bound_by": k3[7]["bound_by"],
             "library_ms": None,
-        }]}
+        }, {
+            "name": "roi_align_single",
+            "route": "cuda",
+            "source": "u2seg_torch/csrc/roi_align_single.cu",
+            "replaces": "u2seg_tpu/ops/roi_align_pallas.py:62",
+            "launches": k4["launches"],
+            "max_abs_err": max(k4[s]["max_abs_err_f32"] for s in (7, 14)),
+            "ms": k4[7]["ms"],
+            "plain_ms": k4[7]["plain_ms"],
+            "bound_ms": k4[7]["bound_ms"],
+            "bound_by": k4[7]["bound_by"],
+            "library_ms": None,
+        }] + [{
+            "name": f"window_sum_{mode}",
+            "route": "cuda",
+            "source": "u2seg_torch/csrc/window_probe.cu",
+            "replaces": f"dev/profile_dma_flat.py:{line}",
+            "launches": k5["launches"][mode],
+            "max_abs_err": k5["max_abs_err"][mode],
+            "ms": probe_rows[mode]["ms"],
+            "plain_ms": probe_rows[mode]["plain_ms"],
+            "bound_ms": probe_rows[mode]["bound_ms"],
+            "bound_by": probe_rows[mode]["bound_by"],
+            "library_ms": None,
+        } for mode, line in (("3d", 50), ("flat", 70))]}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

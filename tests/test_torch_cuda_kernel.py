@@ -1,5 +1,6 @@
-"""The multilevel ROIAlign CUDA kernels (forward and backward) vs their plain
-twin, on the card.
+"""The port's CUDA kernels vs their plain versions, on the card: the
+multilevel ROIAlign (forward and backward), the single-level window ROIAlign
+and the two window-read probe kernels.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -11,13 +12,19 @@ Tolerances: f32 (TF32 off) 1e-4 * max(1, max|plain|); bf16 at the AMP
 tolerance (rtol 0.05, atol 0.03). The backward kernel adds with atomics,
 whose order changes from run to run: its f32 gradients are held to autograd of
 the twin at 1e-4 * max(1, max|plain grad|), its bf16 ones (one rounding of an
-f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain grad|) / 8.
+f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain grad|) / 8. The
+single-level kernel accumulates and writes f32 for every input type: 1e-4 *
+max(1, max|plain|) for f32 and for bf16 maps alike. The probe kernels sum
+bf16 values in f32 in another order than the plain version: rtol 1e-5, atol
+1e-3 on sums of thousands of values.
 """
 import numpy as np
 import pytest
 import torch
 
+from u2seg_torch.dev import profile_window_read as probe
 from u2seg_torch.ops import roi_align_ml as rap
+from u2seg_torch.ops import roi_align_single as ras
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
@@ -116,3 +123,88 @@ def test_backward_kernel_through_channels_last_views_and_no_rois(dev):
     empty = rap.multilevel_roi_align_train(
         [f.clone().requires_grad_() for f in feats], boxes[:0], bidx[:0], 7, STRIDES)
     assert empty.shape == (0, 7, 7, feats[0].shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the single-level window ROIAlign
+# ---------------------------------------------------------------------------
+
+def _single_inputs(dev, dtype, n=60, c=64, h=72, w=104):
+    g = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn(2, h, w, c, generator=g, device=dev).to(dtype)
+    rng = np.random.RandomState(0)
+    xy = rng.rand(n, 2) * [8 * w, 8 * h]
+    wh = np.exp(rng.uniform(np.log(8), np.log(400), (n, 2)))   # up to 50 cells
+    boxes = np.concatenate([xy, xy + wh], 1)
+    boxes[:3] = [[0, 0, 0, 0], [40, 40, 40, 40], [8, 16, 8 * w - 8, 8 * h - 8]]
+    boxes = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    bidx = torch.tensor(rng.randint(0, 2, n), dtype=torch.int32, device=dev)
+    return feat, boxes, bidx
+
+
+@pytest.mark.parametrize("s,r", [(7, 2), (14, 2), (7, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_level_kernel_matches_plain_version(dev, s, r, dtype):
+    feat, boxes, bidx = _single_inputs(dev, dtype)
+    before = ras.roi_align_single.launches
+    got = ras.roi_align_single(feat, boxes, bidx, s, 0.125, r)
+    assert ras.roi_align_single.launches == before + 1
+    ref = ras.roi_align_single_ref(feat, boxes, bidx, s, 0.125, r)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    assert ras.roi_align_single(feat, boxes[:0], bidx[:0], s, 0.125, r).shape == (
+        0, s, s, feat.shape[-1])
+    assert ras.roi_align_single.launches == before + 1     # R = 0 launches nothing
+
+
+def test_single_level_kernel_raises_on_what_it_does_not_take(dev):
+    feat, boxes, bidx = _single_inputs(dev, torch.float32)
+    with pytest.raises(ValueError):         # not contiguous
+        ras.roi_align_single(feat.transpose(1, 2), boxes, bidx, 7, 0.125)
+    with pytest.raises(ValueError):         # unsupported dtype
+        ras.roi_align_single(feat.double(), boxes, bidx, 7, 0.125)
+    with pytest.raises(ValueError):         # odd channel count
+        ras.roi_align_single(feat[..., :63].contiguous(), boxes, bidx, 7, 0.125)
+    with pytest.raises(ValueError):         # map smaller than the window
+        ras.roi_align_single(feat[:, :32].contiguous(), boxes, bidx, 7, 0.125)
+    with pytest.raises(ValueError):         # too many samples per axis
+        ras.roi_align_single(feat, boxes, bidx, 40, 0.125, 2)
+
+
+# ---------------------------------------------------------------------------
+# the window-read probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,wy,wx", [
+    ("3d", 32, 40), ("flat", 32, 40), ("flat", 32, 32), ("flat", 16, 16),
+    ("3d", 16, 24)])
+def test_probe_kernels_match_plain_version(dev, mode, wy, wx):
+    shape = (3, 64, 96, 256)
+    feat = probe.make_map(0, dev, shape)
+    oy, ox, b = probe.make_origins(np.random.RandomState(1), 64, shape, wy, wx,
+                                   mode, dev)
+    if mode == "3d":
+        ox = ox + 3          # the kernel aligns down itself
+    before = probe.window_sum.launches[mode]
+    got = probe.window_sum(feat, oy, ox, b, wy, wx, mode)
+    assert probe.window_sum.launches[mode] == before + 1
+    ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (8, 8, 128)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+
+
+def test_probe_kernels_raise_on_what_they_do_not_take(dev):
+    shape = (2, 64, 96, 256)
+    feat = probe.make_map(0, dev, shape)
+    oy, ox, b = probe.make_origins(np.random.RandomState(1), 16, shape, 16, 16,
+                                   "flat", dev)
+    with pytest.raises(ValueError):         # f32 map
+        probe.window_sum(feat.float(), oy, ox, b, 16, 16, "flat")
+    with pytest.raises(ValueError):         # int64 origins
+        probe.window_sum(feat, oy.long(), ox, b, 16, 16, "flat")
+    with pytest.raises(ValueError):         # N not a multiple of the group
+        probe.window_sum(feat, oy[:5], ox[:5], b[:5], 16, 16, "3d")
+    with pytest.raises(ValueError):         # window larger than the map
+        probe.window_sum(feat, oy, ox, b, 80, 16, "3d")

@@ -1,5 +1,6 @@
-"""u2seg_torch stands alone: it imports neither JAX nor the JAX package,
-and its entry points refuse to fall back to the CPU silently.
+"""u2seg_torch stands alone: it imports neither JAX, the JAX package nor
+OpenCV (the machine with the card has none of them), and its entry points
+refuse to fall back to the CPU silently.
 
 "Names" below means imports: every ``import`` / ``from ... import`` and every
 ``importlib.import_module`` / ``__import__`` call with a literal module name,
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "u2seg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "u2seg_tpu", "cv2")
 
 
 def _port_sources():
@@ -45,6 +46,11 @@ def _imported_names(path):
 def test_no_source_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 15 and os.path.join(ROOT, "chip_smoke.py") in files
+    rel = {os.path.relpath(p, os.path.join(ROOT, "u2seg_torch")) for p in files}
+    assert {"engine/predictor.py", "engine/device_render.py",
+            "engine/panoptic_render.py", "data/transforms.py",
+            "evaluation/rle.py", "ops/roi_align_single.py",
+            "dev/profile_window_read.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -69,6 +75,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from u2seg_torch.config import Config
+    from u2seg_torch.engine.predictor import DefaultPredictor
+    from u2seg_torch.engine.trainer import create_train_state
     from u2seg_torch.entry import entry
     from u2seg_torch.models.build import build_model
 
@@ -77,3 +85,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         build_model(Config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DefaultPredictor(Config())

@@ -1,0 +1,1 @@
+"""Part of the u2seg_torch port; see the package docstring."""

@@ -1,1 +1,1 @@
-"""Training engine of the port (counterpart of ``u2seg_tpu/engine``)."""
+"""Training and inference engine of the port (counterpart of ``u2seg_tpu/engine``)."""
