@@ -1,6 +1,8 @@
 """The port's CUDA kernels vs their plain versions, on the card: the
-multilevel ROIAlign (forward and backward), the single-level window ROIAlign
-and the two window-read probe kernels.
+multilevel ROIAlign (forward and backward span kernels: main shapes, a ragged
+channel width for each dtype pair, levels smaller than the window, what
+they reject, and the first kernels they are timed against), the single-level
+window ROIAlign and the two window-read probe kernels.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -77,6 +79,118 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         rap.multilevel_roi_align_kernel(
             [f.double() for f in feats], boxes, bidx, 7, STRIDES)
+    with pytest.raises(ValueError, match="multiple of 8"):      # 16-byte vectors
+        rap.multilevel_roi_align_kernel(
+            [f[..., :12].contiguous() for f in feats], boxes, bidx, 7, STRIDES)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rap.multilevel_roi_align_train(
+            [f[..., :4].contiguous() for f in feats], boxes, bidx, 7, STRIDES)
+    with pytest.raises(ValueError, match="s \\* r"):
+        rap.multilevel_roi_align_kernel(feats, boxes, bidx, 40, STRIDES)
+    # level storage that is 8- but not 16-byte aligned
+    off = [torch.empty(f.numel() + 2, device=dev)[2:].view(f.shape).copy_(f)
+           for f in feats]
+    assert all(f.is_contiguous() and f.data_ptr() % 16 == 8 for f in off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rap.multilevel_roi_align_kernel(off, boxes, bidx, 7, STRIDES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rap.multilevel_roi_align_train(off, boxes, bidx, 7, STRIDES)
+    # an output size whose cotangent tile exceeds a block's shared memory
+    ext, st_ext = rap._append_virtual_level(feats, STRIDES)
+    args = rap._prepare_ext(ext, boxes, bidx, 32, 2, st_ext, 224.0, 4, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        rap.multilevel_roi_align_backward(rap.prepare_backward(
+            torch.zeros(boxes.shape[0], 32, 32, 64, device=dev), args.roi_i, args.roi_f,
+            [tuple(f.shape) for f in args.levels], 32, 2))
+
+
+@pytest.mark.parametrize("din,dout", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_kernels_at_a_ragged_width(dev, din, dout):
+    """C=72: the last chunk of channels is partly empty (64 + 8)."""
+    feats, boxes, bidx = _inputs(dev, din, c=72)
+    for s in (7, 14):
+        got = rap.multilevel_roi_align_kernel(feats, boxes, bidx, s, STRIDES,
+                                              out_dtype=dout).float()
+        ref = rap.multilevel_roi_align_ref(feats, boxes, bidx, s, STRIDES)
+        torch.cuda.synchronize()
+        if din == dout == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+        else:
+            torch.testing.assert_close(got, ref, rtol=0.05, atol=0.03)
+    if dout == torch.bfloat16:
+        return
+    # the backward at the same width (f32 out is the train pooler's)
+    s = 7
+    g = torch.randn(boxes.shape[0], s, s, 72, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    fk = [f.clone().requires_grad_() for f in feats]
+    fp = [f.clone().requires_grad_() for f in feats]
+    got = torch.autograd.grad(
+        rap.multilevel_roi_align_train(fk, boxes, bidx, s, STRIDES), fk, g)
+    ref = torch.autograd.grad(
+        rap.multilevel_roi_align_ref(fp, boxes, bidx, s, STRIDES), fp, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        scale = max(1.0, float(b.float().abs().max()))
+        err = (a.float() - b.float()).abs()
+        if din == torch.float32:
+            assert float(err.max()) <= 1e-4 * scale
+        else:
+            assert bool((err <= 0.03 * scale / 8 + 0.05 * b.float().abs()).all())
+
+
+@pytest.mark.parametrize("s", [7, 14])
+def test_kernels_on_levels_smaller_than_the_window(dev, s):
+    """p2..p5 of a 64 x 64 image: 16 x 16 down to 2 x 2, a 1 x 1 virtual level."""
+    feats, boxes, bidx = _inputs(dev, torch.float32, n=60, c=16, h=16, w=16)
+    boxes = boxes / 6.0
+    fk = [f.clone().requires_grad_() for f in feats]
+    fp = [f.clone().requires_grad_() for f in feats]
+    g = torch.randn(boxes.shape[0], s, s, 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    out = rap.multilevel_roi_align_train(fk, boxes, bidx, s, STRIDES)
+    ref = rap.multilevel_roi_align_ref(fp, boxes, bidx, s, STRIDES)
+    got_g = torch.autograd.grad(out, fk, g)
+    ref_g = torch.autograd.grad(ref, fp, g)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    for a, b in zip(got_g, ref_g):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+def test_first_kernels_agree_with_the_span_kernels(dev):
+    """The yardstick kernels (v1) still compute the same function."""
+    feats, boxes, bidx = _inputs(dev, torch.float32)
+    before = rap.multilevel_roi_align_kernel.launches
+    new = rap.launch(rap.prepare_launch(feats, boxes, bidx, 7, 2, STRIDES, 224.0, 4,
+                                        torch.float32))
+    old = rap.launch_v1(rap.prepare_launch(feats, boxes, bidx, 7, 2, STRIDES, 224.0, 4,
+                                           torch.float32))
+    torch.cuda.synchronize()
+    assert rap.multilevel_roi_align_kernel.launches == before + 1   # v1 counts nothing
+    assert float((new - old).abs().max()) <= 1e-4 * max(1.0, float(new.abs().max()))
+    # and the backward one, at the tolerance its plain version is held to
+    g = torch.randn(boxes.shape[0], 7, 7, feats[0].shape[-1], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    ext, st_ext = rap._append_virtual_level(feats, STRIDES)
+    fa = rap._prepare_ext(ext, boxes, bidx, 7, 2, st_ext, 224.0, 4, torch.float32)
+    shapes = [tuple(f.shape) for f in ext]
+    before = rap.multilevel_roi_align_backward.launches
+    new_g = rap.multilevel_roi_align_backward(
+        rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, 7, 2))
+    old_g = rap.multilevel_roi_align_backward_v1(
+        rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, 7, 2))
+    torch.cuda.synchronize()
+    assert rap.multilevel_roi_align_backward.launches == before + 1
+    for a, b in zip(new_g, old_g):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(a.abs().max()))
+    # the library and the wrapper agree on a block's shared memory
+    for s in (7, 14):
+        assert rap.kernel_shared_bytes(True, s) == rap.backward_shared_bytes(s)
+        assert rap.kernel_shared_bytes(False, s) == rap.forward_shared_bytes(
+            s, rap.forward_plan(s)[1])
 
 
 @pytest.mark.parametrize("s", [7, 14])

@@ -1,4 +1,4 @@
-"""Multilevel FPN ROIAlign: the hand-written CUDA kernel and its plain twin.
+"""Multilevel FPN ROIAlign: the hand-written CUDA kernels and their plain twin.
 
 This is ``pooler_impl="pallas"`` of the JAX package
 (``u2seg_tpu/ops/roi_align_pallas.py``). Its semantics differ from the gather
@@ -14,7 +14,7 @@ pooler in two ways, both kept here:
 Plain twins of the JAX functions (same names, same f32 op order):
 ``_ml_prep``, ``_append_virtual_level``, ``_pooled_axis_weights_host``,
 ``_ml_geometry`` and ``multilevel_roi_align_ref``. The twin is the CPU path
-and the yardstick the kernel is held to on the card.
+and the yardstick the kernels are held to on the card.
 
 ``multilevel_roi_align_kernel`` is the wrapper: for CPU tensors it returns the
 twin; for CUDA tensors it launches ``csrc/roi_align_ml.cu`` or raises. It
@@ -27,6 +27,27 @@ whose forward is the kernel above and whose backward is the second kernel
 of the same source (the port of the TPU kernel ``_ml_bwd_kernel``), counted
 in ``multilevel_roi_align_backward.launches``; on CPU tensors it is the
 twin under autograd, which is also the backward kernel's plain version.
+
+The kernels' design (the source's header has the detail). For one ROI the
+pooled output is ``einsum(Wy, Wx, window)`` with the dense per-axis weights of
+``_pooled_axis_weights_host`` (``dense_axis_weights`` below returns them per
+ROI), and the backward is its transpose. Every cell of non-zero weight lies
+inside the ROI's window and inside the true level dims; the box of those cells
+is the ROI's *span* (``roi_spans``). One block serves one (ROI, chunk of
+``CHUNK`` = 64 channels): the forward copies the rows of the span that a group
+of output rows needs into a buffer in shared memory (block size and buffer
+from ``forward_plan``) with 16-byte copies and interpolates from there; the
+backward
+keeps the ROI's cotangent tile in shared memory and makes one 16-byte vector
+atomic per (span cell, 4 channels). Both are bound by bytes on the card. That
+is why C must be a multiple of 8 and all storage 16-byte aligned:
+``_check_inputs`` and ``_prepare_ext`` raise otherwise.
+
+``launch_v1`` and ``multilevel_roi_align_backward_v1`` launch the first
+kernels of the source (one block per ROI and output row, every tap fetched
+from L1/L2, one 8-byte atomic per tap). They exist so that
+``python3 chip_smoke.py --phases k1,k3`` can time old against new in one run
+on one card; nothing else calls them and they count no launch.
 """
 from __future__ import annotations
 
@@ -50,6 +71,59 @@ WIN_Y = 32    # y window
 SPAN_BUDGET = min(WIN - 11, WIN_Y - 4)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The span kernels' launch plan. One block per (ROI, chunk of channels).
+CHUNK = 64                 # channels per block (kChunk of the source)
+STAGE_BYTES = 49152        # forward: the largest stage buffer forward_plan picks
+MAX_SHARED_BYTES = 232448  # 227 KB: the most dynamic shared memory of a block
+MAX_SAMPLES = 64           # s * r along one axis
+ALIGN = 16                 # bytes: every global access is a 16-byte vector
+CHANNEL_MULTIPLE = 8       # 8 bf16 = 16 bytes; f32 output units are 8 wide too
+
+
+def table_bytes(s: int) -> int:
+    """Shared memory of one block's dense weight tables: Wy (s, WIN_Y), Wx
+    (s, WIN), per-bin and per-cell ranges (``table_bytes`` of the source)."""
+    return 4 * (s * (WIN_Y + WIN) + 4 * s + 2 * (WIN_Y + WIN))
+
+
+def forward_shared_bytes(s: int, stage_bytes: int = STAGE_BYTES) -> int:
+    """Dynamic shared memory of one forward block: stage buffer + tables."""
+    return stage_bytes + table_bytes(s)
+
+
+def backward_shared_bytes(s: int) -> int:
+    """Dynamic shared memory of one backward block: the ROI's f32 cotangent
+    tile (s, s, CHUNK) + tables."""
+    return s * s * CHUNK * 4 + table_bytes(s)
+
+
+def forward_plan(s: int) -> Tuple[int, int]:
+    """Block size and stage buffer of the forward launch, by measurement on
+    the card (``python3 -m u2seg_torch.dev.sweep_forward_plan`` times the
+    alternatives): a 7 x 7 output has 392 8-channel values per 64-channel
+    block, which 128 threads cover in 3 rounds with 8 blocks resident per SM;
+    a 14 x 14 output has 1568 and takes 256 threads and a 48 KB buffer (fewer
+    groups of rows; 4 blocks resident per SM). Every plan holds a row of the widest span (WIN cells of
+    CHUNK f32 channels) and has at least 2 s threads, as the source requires."""
+    return (128, 24576) if s * s <= 64 else (256, 49152)
+
+
+def check_launch_plan(s: int, r: int, channels: int, shared_bytes: int) -> None:
+    """Raise on a launch the span kernels do not take."""
+    if s < 1 or r < 1 or s * r > MAX_SAMPLES:
+        raise ValueError(f"kernel needs 1 <= s * r <= {MAX_SAMPLES}, got s={s} r={r}")
+    if channels < CHANNEL_MULTIPLE or channels % CHANNEL_MULTIPLE:
+        raise ValueError(f"kernel needs C to be a multiple of {CHANNEL_MULTIPLE} "
+                         f"(16-byte vectors), got C={channels}")
+    if shared_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"s={s} needs {shared_bytes} bytes of shared memory per "
+                         f"block, above {MAX_SHARED_BYTES}")
+
+
+def _check_aligned(tensors, what: str) -> None:
+    if any(t.data_ptr() % ALIGN for t in tensors):
+        raise ValueError(f"{what} storage must be {ALIGN}-byte aligned")
 
 
 def _padded_dims(dims) -> Tuple[Tuple[int, int], ...]:
@@ -154,6 +228,36 @@ def _pooled_axis_weights_host(c0, binsz, origin, size, s: int, r: int,
     wgt = torch.clamp(1.0 - torch.abs(local[..., None] - cells), min=0.0)
     wgt = wgt * inside[..., None]
     return wgt.reshape(-1, s, r, win).sum(dim=2) * (1.0 / r)
+
+
+def dense_axis_weights(boxes, dims, strides, s, r, cbs=224.0, cl=4):
+    """The kernels' per-ROI tables: ``Wy`` (R, s, WIN_Y) and ``Wx`` (R, s, WIN)
+    over window cells, and the routing. ``dims``/``strides`` include the
+    virtual level."""
+    dev = boxes.device
+    prep = _ml_prep(boxes, dims, strides, s, r, cbs, cl)
+    lvl = prep["lvl"]
+    true_h = device_table([d[0] for d in dims], torch.float32, dev)[lvl]
+    true_w = device_table([d[1] for d in dims], torch.float32, dev)[lvl]
+    wy = _pooled_axis_weights_host(prep["y0"], prep["bin_h"], prep["oy"], true_h,
+                                   s, r, WIN_Y)
+    wx = _pooled_axis_weights_host(prep["x0"], prep["bin_w"], prep["ox"], true_w,
+                                   s, r, WIN)
+    return wy, wx, prep
+
+
+def roi_spans(wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """(R, 4) int64 window-local ``y_lo, y_hi, x_lo, x_hi`` (inclusive) of the
+    cells with a non-zero weight; ``lo > hi`` where an axis has none."""
+    def axis(w):
+        hit = (w != 0).any(dim=1)                        # (R, win)
+        cells = torch.arange(w.shape[-1], device=w.device)
+        lo = torch.where(hit, cells, w.shape[-1]).amin(dim=1)
+        hi = torch.where(hit, cells, -1).amax(dim=1)
+        return lo, hi
+    y_lo, y_hi = axis(wy)
+    x_lo, x_hi = axis(wx)
+    return torch.stack([y_lo, y_hi, x_lo, x_hi], dim=1)
 
 
 def _ml_geometry(boxes, batch_idx, dims, strides, s, r, cbs, cl):
@@ -267,8 +371,9 @@ def _check_inputs(features, boxes, batch_idx, s, r, out_dtype):
                              "B and C")
     if dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtypes {dtype} -> {out_dtype}")
-    if c % 2 or s * r > 64 or len(features) + 1 > 8:
-        raise ValueError("kernel needs an even C, s*r <= 64 and <= 7 levels")
+    if len(features) + 1 > 8:
+        raise ValueError("kernel takes <= 7 levels")
+    check_launch_plan(s, r, c, forward_shared_bytes(s, forward_plan(s)[1]))
     if (boxes.dtype != torch.float32 or boxes.dim() != 2 or boxes.shape[1] != 4
             or batch_idx.shape != boxes.shape[:1] or batch_idx.device != dev):
         raise ValueError("boxes must be (R, 4) float32 with (R,) batch_idx")
@@ -300,8 +405,7 @@ def _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
     """``prepare_launch`` on a level list that already ends in the virtual
     level."""
     feats = [f.contiguous() for f in feats]
-    if any(f.data_ptr() % 8 for f in feats):
-        raise ValueError("level storage must be 8-byte aligned")
+    _check_aligned(feats, "level")
     dims = tuple((f.shape[1], f.shape[2]) for f in feats)
     prep = _ml_prep(boxes, dims, strides_ext, s, r, canonical_box_size,
                     canonical_level)
@@ -311,6 +415,7 @@ def _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
                          prep["bin_w"]], dim=1).contiguous()
     out = torch.empty((boxes.shape[0], s, s, feats[0].shape[-1]),
                       dtype=out_dtype, device=boxes.device)
+    _check_aligned([roi_i, roi_f, out], "ROI table and output")
     return LaunchArgs(feats, roi_i, roi_f, out, s, r)
 
 
@@ -322,19 +427,37 @@ def _c_fn(name: str, argtypes):
     return lib, fn
 
 
+_FORWARD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 8)
+_BACKWARD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_fn():
     return _c_fn("u2seg_roi_align_ml_forward",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                 _FORWARD_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_fn_v1():
+    return _c_fn("u2seg_roi_align_ml_forward_v1", _FORWARD_ARGS + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_fn():
-    return _c_fn("u2seg_roi_align_ml_backward",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p])
+    return _c_fn("u2seg_roi_align_ml_backward", _BACKWARD_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_fn_v1():
+    return _c_fn("u2seg_roi_align_ml_backward_v1", _BACKWARD_ARGS)
+
+
+def kernel_shared_bytes(backward: bool, s: int) -> int:
+    """What the built library itself says one block takes (builds it)."""
+    _, fn = _c_fn("u2seg_roi_align_ml_smem_bytes", [ctypes.c_int] * 5)
+    return fn(int(backward), s, WIN_Y, WIN, forward_plan(s)[1])
 
 
 def _level_tables(levels):
@@ -346,19 +469,36 @@ def _level_tables(levels):
     return as_ptr(ptrs), as_ptr(hs), as_ptr(ws), (ptrs, hs, ws)
 
 
-def launch(a: LaunchArgs) -> torch.Tensor:
-    """Launch ``csrc/roi_align_ml.cu`` on the current stream; counts the
-    launch in ``multilevel_roi_align_kernel.launches``."""
-    lib, fn = _forward_fn()
+def _forward_call(a: LaunchArgs, entry, plan=()) -> None:
+    """Call a forward entry point of the library (``entry``: library and
+    function) on ``a``; ``plan`` are the entry point's own trailing ints."""
+    lib, fn = entry
     ptrs, hs, ws, _keep = _level_tables(a.levels)
     n_roi, _, _, c = a.out.shape
     code = fn(ptrs, hs, ws, len(a.levels), a.roi_i.data_ptr(),
               a.roi_f.data_ptr(), a.out.data_ptr(), n_roi, c, a.s, a.r,
               WIN_Y, WIN, _DTYPE_CODES[a.levels[0].dtype],
-              _DTYPE_CODES[a.out.dtype],
+              _DTYPE_CODES[a.out.dtype], *plan,
               torch.cuda.current_stream(a.out.device).cuda_stream)
     _cuda.check(lib, code, "roi_align_ml launch")
+
+
+def launch(a: LaunchArgs) -> torch.Tensor:
+    """Launch the span forward kernel of ``csrc/roi_align_ml.cu`` on the
+    current stream; counts the launch in
+    ``multilevel_roi_align_kernel.launches``."""
+    threads, stage_bytes = forward_plan(a.s)
+    check_launch_plan(a.s, a.r, a.out.shape[-1],
+                      forward_shared_bytes(a.s, stage_bytes))
+    _forward_call(a, _forward_fn(), (threads, stage_bytes))
     multilevel_roi_align_kernel.launches += 1
+    return a.out
+
+
+def launch_v1(a: LaunchArgs) -> torch.Tensor:
+    """The first forward kernel on the same arguments: a yardstick for
+    ``chip_smoke.py``, on no other path and counted nowhere."""
+    _forward_call(a, _forward_fn_v1())
     return a.out
 
 
@@ -388,16 +528,13 @@ def prepare_backward(g, roi_i, roi_f, shapes, s, r) -> BackwardArgs:
     g = g.to(torch.float32).contiguous()
     grads = [torch.empty(sh, dtype=torch.float32, device=g.device)
              for sh in shapes]
-    if g.data_ptr() % 8 or any(t.data_ptr() % 8 for t in grads):
-        raise ValueError("cotangent and gradient storage must be 8-byte aligned")
+    _check_aligned([g, *grads], "cotangent and gradient")
     return BackwardArgs(g, roi_i, roi_f, grads, s, r)
 
 
-def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
-    """Launch the backward kernel of ``csrc/roi_align_ml.cu`` on the current
-    stream: zero ``a.grads``, then add every ROI's window cotangent into
-    them. Counts the launch in ``multilevel_roi_align_backward.launches``."""
-    lib, fn = _backward_fn()
+def _backward_call(a: BackwardArgs, entry) -> None:
+    """Call a backward entry point of the library (library and function)."""
+    lib, fn = entry
     ptrs, hs, ws, _keep = _level_tables(a.grads)
     n_roi, _, _, c = a.g.shape
     code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0],
@@ -405,7 +542,22 @@ def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
               a.s, a.r, WIN_Y, WIN,
               torch.cuda.current_stream(a.g.device).cuda_stream)
     _cuda.check(lib, code, "roi_align_ml backward launch")
+
+
+def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
+    """Launch the span backward kernel of ``csrc/roi_align_ml.cu`` on the
+    current stream: zero ``a.grads``, then add every ROI's span cotangent into
+    them. Counts the launch in ``multilevel_roi_align_backward.launches``."""
+    check_launch_plan(a.s, a.r, a.g.shape[-1], backward_shared_bytes(a.s))
+    _backward_call(a, _backward_fn())
     multilevel_roi_align_backward.launches += 1
+    return a.grads
+
+
+def multilevel_roi_align_backward_v1(a: BackwardArgs) -> List[torch.Tensor]:
+    """The first backward kernel on the same arguments: a yardstick for
+    ``chip_smoke.py``, on no other path and counted nowhere."""
+    _backward_call(a, _backward_fn_v1())
     return a.grads
 
 
