@@ -14,18 +14,16 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    at 1e-4 and bf16 at the AMP tolerance (rtol 0.05, atol 0.03); its time,
    the twin's, and the bound; once more at a narrow ragged width (C=72: the
    last chunk of channels is partly empty) for every dtype pair, and on
-   boxes whose bins are taller than the stage buffer; then the first kernel
-   of the source (v1) is held to the span kernel's result and both are timed
-   in turns (old, new, new, old) on the same arguments. The times are device
-   times: the launches of a turn are captured into one CUDA graph, so no
-   host code runs between them. Once with L2 warm (one launch repeated) and
-   once with L2 exceeded (rotating over 4 copies of levels and output);
+   boxes whose bins are taller than the stage buffer. The times are device
+   times: the launches are captured into one CUDA graph, so no host code
+   runs between them. Once with L2 warm (one launch repeated) and once with
+   L2 exceeded (rotating over 4 copies of levels and output);
    k3: the backward kernel against autograd of the twin at the train path's
    shapes (b=2 at 800x1344; R=1024 at s=7, R=256 at s=14; f32 and bf16
    levels, f32 cotangent), the budget-edge boxes and R=0 included, and at
-   C=72; v1 held to the span kernel's result and both timed in turns the
-   same way (each launch first zero-fills 183 MB of gradient levels, which
-   exceeds L2, so every launch finds its inputs cold);
+   C=72; its device time the same way (each launch first zero-fills 183 MB
+   of gradient levels, which exceeds L2, so every launch finds its inputs
+   cold);
 4. serve: the default Config() at full width (R50-FPN, 3-stage cascade over
    800 classes, masks, 28 sem-seg classes, bf16) with seeded weights serves 4
    requests (3 at 800x1216, 1 at 512x832, b=1); the forward kernel's launch
@@ -46,15 +44,20 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    every candidate so that no random draw matters: losses, gradients and the
    updated BN statistics.
 
-8. k4: the single-level window ROIAlign kernel against its plain version on
-   one level of the serving path (p3 of an 800x1216 image: 100x152, C=256):
-   R=1000 boxes that fit the 40 x 40 window plus budget-edge boxes, one
-   over-long box, degenerate zero boxes, and R=0; s=7 and s=14, r=2; f32
-   (TF32 off, 1e-4 * max(1, max|plain|)) and bf16 maps (rtol 0.05, atol
-   0.03); kernel, wrapper, plain and gather-pooler times and the byte bound.
-   No model path reaches this kernel (in the JAX package neither): its
-   "path" is two calls of the public wrapper at these shapes, counted apart
-   from the comparison launches;
+8. k4: the single-level window ROIAlign kernel (a span kernel, as K1)
+   against its plain version on one level of the serving path (p3 of an
+   800x1216 image: 100x152, C=256): R=1000 boxes that fit the 40 x 40 window
+   plus budget-edge boxes, one over-long box, degenerate zero boxes, and R=0;
+   s=7 and s=14, r=2; f32 (TF32 off, 1e-4 * max(1, max|plain|)) and bf16
+   maps (rtol 0.05, atol 0.03); once more at C=72 (ragged last chunk) for
+   each map type, and on bins taller than the stage buffer (boxes as large
+   as the window at s=1-3: the global-memory path). Device times as for K1
+   (CUDA graph, L2 warm and L2 exceeded), wrapper, plain and gather-pooler
+   times, the byte bound, the shared memory the library reports against the
+   wrapper's plan, and registers and spills from the ptxas log. No model
+   path reaches this kernel (in the JAX package neither): its "path" is two
+   calls of the public wrapper at these shapes, counted apart from the
+   comparison launches;
 9. k5: the two window-read probe kernels against their plain version at
    N=512 windows per shape, then ``profile_window_read.time_shapes`` (the
    probe's own path: five window shapes, N=8000) in ms and GB/s;
@@ -86,7 +89,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -96,7 +98,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from u2seg_torch.dev.sweep_forward_plan import graph_ms  # noqa: E402  (device ms from a CUDA graph)
+# device ms from a CUDA graph; the card's name and power limit
+from u2seg_torch.dev.sweep_forward_plan import graph_ms, smi_line  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -118,12 +121,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -136,14 +133,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
-
-
-def in_turns(old, new, iters: int):
-    """``old`` and ``new`` (lists of functions taken in rotation) timed old,
-    new, new, old with ``graph_ms`` on this card in this process: (ms of old,
-    ms of new), each the mean of its two turns, and the four readings."""
-    turns = [graph_ms(fns, iters) for fns in (old, new, new, old)]
-    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
 NARROW_C = 72            # 64 + 8: the last chunk of channels is ragged
@@ -220,11 +209,9 @@ def span_stats(rap, feats, boxes, s, strides):
     rows = (sp[:, 1] - sp[:, 0] + 1).clamp(min=0)
     cols = (sp[:, 3] - sp[:, 2] + 1).clamp(min=0)
     touched = ((wy != 0).any(1).sum(-1) * (wx != 0).any(1).sum(-1))
-    taps = ((wy != 0).sum(-1).sum(-1) * (wx != 0).sum(-1).sum(-1))
     return dict(span_cells=int((rows * cols).sum()), mean_rows=float(rows.float().mean()),
                 mean_cols=float(cols.float().mean()), max_rows=int(rows.max()),
-                max_cols=int(cols.max()), touched_cells=int(touched.sum()),
-                weight_pairs=int(taps.sum()))
+                max_cols=int(cols.max()), touched_cells=int(touched.sum()))
 
 
 TALL_HW, TALL_C = (4096, 5120), 8     # virtual level 64 x 80: larger than the window
@@ -345,30 +332,19 @@ def phase_kernel(dev):
         # timing at the main path's dtype (bf16 levels -> bf16 pooled)
         sets = [[f.to(torch.bfloat16) for f in base] for _ in range(ROTATION)]
         feats = sets[0]
-
-        def prepared():
-            return [rap.prepare_launch(fs, boxes, bidx, s, 2, strides, 224.0, 4,
-                                       torch.bfloat16) for fs in sets]
-
-        new_args, old_args = prepared(), prepared()
-        new_out = rap.launch(new_args[0]).float().clone()
-        v1_err = (rap.launch_v1(old_args[0]).float() - new_out).abs()
-        if not bool((v1_err <= AMP_ATOL + AMP_RTOL * new_out.abs()).all()):
-            raise AssertionError(f"the v1 forward kernel no longer computes what the span "
-                                 f"kernel does (s={s}): max|diff| {float(v1_err.max()):.3e}")
-        v1_diff = float(v1_err.max())
+        args = [rap.prepare_launch(fs, boxes, bidx, s, 2, strides, 224.0, 4,
+                                   torch.bfloat16) for fs in sets]
+        out = rap.launch(args[0])
         threads, stage_bytes = rap.forward_plan(s)
         shared = rap.forward_shared_bytes(s, stage_bytes)
         if rap.kernel_shared_bytes(False, s) != shared:
             raise AssertionError("the library and the wrapper disagree on shared memory")
-        old_fns = [lambda a=a: rap.launch_v1(a) for a in old_args]
-        new_fns = [lambda a=a: rap.launch(a) for a in new_args]
-        rec["previous_ms"], rec["ms"], rec["turns_ms"] = in_turns(
-            old_fns[:1], new_fns[:1], iters=48)
-        rec["previous_cold_ms"], rec["cold_ms"], rec["cold_turns_ms"] = in_turns(
-            old_fns, new_fns, iters=48)
-        rec["enqueue_ms"] = cuda_ms(new_fns[0], iters=200)
-        del new_args[1:], old_args[1:], sets[1:], old_fns, new_fns
+        fns = [lambda a=a: rap.launch(a) for a in args]
+        rec["ms"] = graph_ms(fns[:1], iters=48)
+        rec["cold_ms"] = graph_ms(fns, iters=48)
+        rec["enqueue_ms"] = cuda_ms(fns[0], iters=200)
+        rot_mb = ROTATION * (sum(f.numel() for f in feats) + out.numel()) * 2 / 1e6
+        del args[1:], sets[1:], fns
         rec["wrapper_ms"] = cuda_ms(lambda: rap.multilevel_roi_align_kernel(
             feats, boxes, bidx, s, strides, out_dtype=torch.bfloat16), iters=20)
         rec["plain_ms"] = cuda_ms(lambda: rap.multilevel_roi_align_ref(
@@ -380,19 +356,13 @@ def phase_kernel(dev):
                    chunk=rap.CHUNK, threads=threads, shared_bytes=shared,
                    spans=span_stats(rap, feats, boxes, s, strides))
         sp = rec["spans"]
-        rot_mb = ROTATION * (sum(f.numel() for f in feats) + new_out.numel()) * 2 / 1e6
         log(f"[kernel] s={s} R={n} bf16 device time (48 launches in one CUDA graph, no "
-            f"host code between them), in turns (old, new, new, old) "
-            f"{', '.join(f'{t:.4f}' for t in rec['turns_ms'])} ms with L2 warm (one launch "
-            f"repeated): span kernel {rec['ms']:.4f} ms (chunk {rap.CHUNK}, {threads} "
-            f"threads, {shared} B shared), v1 {rec['previous_ms']:.4f} ms "
-            f"({rec['previous_ms'] / rec['ms']:.2f}x; max|v1-span| {v1_diff:.2e}); with L2 "
-            f"exceeded (rotating over {ROTATION} copies of levels and output, {rot_mb:.0f} "
-            f"MB) {', '.join(f'{t:.4f}' for t in rec['cold_turns_ms'])} ms: span "
-            f"{rec['cold_ms']:.4f} ms, v1 {rec['previous_cold_ms']:.4f} ms "
-            f"({rec['previous_cold_ms'] / rec['cold_ms']:.2f}x); launched back to back "
-            f"through the Python wrapper {rec['enqueue_ms']:.4f} ms per launch (the host's "
-            f"enqueue rate where above the device time); wrapper (prep+kernel) "
+            f"host code between them): {rec['ms']:.4f} ms with L2 warm (one launch "
+            f"repeated; chunk {rap.CHUNK}, {threads} threads, {shared} B shared), "
+            f"{rec['cold_ms']:.4f} ms with L2 exceeded (rotating over {ROTATION} copies of "
+            f"levels and output, {rot_mb:.0f} MB); launched back to back through the "
+            f"Python wrapper {rec['enqueue_ms']:.4f} ms per launch (the host's enqueue "
+            f"rate where above the device time); wrapper (prep+kernel) "
             f"{rec['wrapper_ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> {rec['ms'] / rec['bound_ms']:.1f}x "
@@ -401,7 +371,7 @@ def phase_kernel(dev):
             f"{sp['mean_rows']:.1f} x {sp['mean_cols']:.1f}, largest {sp['max_rows']} x "
             f"{sp['max_cols']}; library call: none (no single PyTorch op "
             f"computes this pooler; torchvision is not installed)")
-        del new_args, old_args, sets
+        del args, sets
         results[s] = rec
     results["narrow"] = narrow_forward_check(rap, dev)
     results["tall_bins"] = tall_bins_forward_check(rap, dev)
@@ -542,24 +512,11 @@ def phase_kernel_backward(dev):
         fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
         shapes = [tuple(f.shape) for f in ext]
         ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)
-        old_ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)
-        new_grads = [t.clone() for t in rap.multilevel_roi_align_backward(ba)]
-        v1_diff = 0.0
-        for a, b_ in zip(rap.multilevel_roi_align_backward_v1(old_ba), new_grads):
-            err = float((a - b_).abs().max())
-            v1_diff = max(v1_diff, err)
-            if err > F32_TOL * max(1.0, float(b_.abs().max())):
-                raise AssertionError(f"the v1 backward kernel no longer computes what the "
-                                     f"span kernel does (s={s}): max|diff| {err:.3e}")
-        del new_grads
         shared = rap.backward_shared_bytes(s)
         if rap.kernel_shared_bytes(True, s) != shared:
             raise AssertionError("the library and the wrapper disagree on shared memory")
-        rec["previous_ms"], rec["ms"], rec["turns_ms"] = in_turns(
-            [lambda: rap.multilevel_roi_align_backward_v1(old_ba)],
-            [lambda: rap.multilevel_roi_align_backward(ba)], iters=10)
+        rec["ms"] = graph_ms([lambda: rap.multilevel_roi_align_backward(ba)], iters=10)
         rec["fill_ms"] = graph_ms([lambda: [t.zero_() for t in ba.grads]], iters=10)
-        del old_ba
         rec["fwd_ms"] = cuda_ms(lambda: rap.launch(fa), iters=20)
         feats_p = [f.requires_grad_() for f in feats]
         out_p = rap.multilevel_roi_align_ref(feats_p, boxes, bidx, s, strides)
@@ -577,19 +534,14 @@ def phase_kernel_backward(dev):
         sp = rec["spans"]
         log(f"[k3] s={s} R={n} timing (bf16 levels, f32 cotangent; zero-fill of "
             f"{sum(t.numel() for t in ba.grads) * 4 / 1e6:.0f} MB + kernel, so every launch "
-            f"finds L2 exceeded; device time of 10 launches in one CUDA graph), in turns "
-            f"(old, new, new, old) "
-            f"{', '.join(f'{t:.4f}' for t in rec['turns_ms'])} ms: span kernel "
+            f"finds L2 exceeded; device time of 10 launches in one CUDA graph): "
             f"{rec['ms']:.4f} ms (chunk {rap.CHUNK}, 256 threads, "
-            f"{shared} B shared), v1 {rec['previous_ms']:.4f} ms "
-            f"({rec['previous_ms'] / rec['ms']:.2f}x; max|v1-span| {v1_diff:.2e}); the "
-            f"zero-fill alone (torch zero_) {rec['fill_ms']:.4f} ms; "
+            f"{shared} B shared); the zero-fill alone (torch zero_) {rec['fill_ms']:.4f} ms; "
             f"plain (autograd of the twin) {rec['plain_ms']:.3f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB = "
             f"cotangent read once + every f32 gradient cell written once, "
             f"{flops / 1e9:.2f} GFLOP) -> {rec['ms'] / rec['bound_ms']:.1f}x its bound; "
-            f"16-byte atomics {sp['touched_cells'] * c // 4} (v1: 8-byte atomics "
-            f"{sp['weight_pairs'] * c // 2}); forward kernel at these shapes (f32 out) "
+            f"16-byte atomics {sp['touched_cells'] * c // 4}; forward kernel at these shapes (f32 out) "
             f"{rec['fwd_ms']:.4f} ms; library call: none (no single PyTorch op "
             f"computes the window transpose and its scatter)")
         results[s] = rec
@@ -1062,33 +1014,6 @@ def phase_train_cpu_parity(dev):
 # Phase 8: the single-level window ROIAlign kernel (K4)
 # ---------------------------------------------------------------------------
 
-K4_HW, K4_STRIDE = (100, 152), 8        # p3 of an 800x1216 image
-
-
-def k4_boxes(rng, n: int) -> torch.Tensor:
-    """Boxes for the 40 x 40 window at stride 8: an x span <= 29 cells (232
-    px) and a y span <= 36 cells always fit; ``edge`` sits on and around
-    those budgets."""
-    h, w = K4_HW[0] * K4_STRIDE, K4_HW[1] * K4_STRIDE
-    edge = np.array([
-        [63.0, 40.0, 63.0 + 232.0, 200.0],     # x span exactly 29 cells, origin 7 off alignment
-        [16.0, 8.0, 120.0, 8.0 + 288.0],       # y span exactly 36 cells
-        [63.0, 40.0, 63.0 + 248.0, 200.0],     # x span 31 cells: one past the budget
-        [100.0, 100.0, 500.0, 420.0],          # over-long: 50 x 40 cells
-        [0.0, 0.0, 0.0, 0.0],                  # zero box
-        [300.0, 300.0, 300.0, 300.0],          # zero size
-        [w - 100.0, h - 90.0, w + 60.0, h + 40.0],   # past the map's corner
-        [w - 200.0, h - 200.0, w - 8.0, h - 8.0],    # origin clipped at the far corner
-        [12.5, 7.25, 44.75, 39.5],             # small, fractional
-    ], np.float32)
-    m = n - len(edge)
-    bw = np.exp(rng.uniform(np.log(8), np.log(230), m))
-    bh = np.exp(rng.uniform(np.log(8), np.log(230), m))
-    x0, y0 = rng.rand(m) * (w - bw), rng.rand(m) * (h - bh)
-    rand = np.stack([x0, y0, x0 + bw, y0 + bh], 1).astype(np.float32)
-    return torch.from_numpy(np.concatenate([edge, rand])), len(edge)
-
-
 def k4_work(ras, feat, boxes, s, r, scale, in_bytes):
     """Bytes (touched map cells read once, f32 output written once, ROI
     inputs) and flops (2 per non-zero tap weight pair, per channel)."""
@@ -1109,7 +1034,104 @@ def k4_work(ras, feat, boxes, s, r, scale, in_bytes):
     return nbytes, flops
 
 
+def k4_agrees(got, ref, dtype) -> bool:
+    """The f32 tolerance for f32 maps, the AMP tolerance for bf16 maps."""
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        return bool((err <= F32_TOL * max(1.0, float(ref.abs().max()))).all())
+    return bool((err <= AMP_ATOL + AMP_RTOL * ref.abs()).all())
+
+
+def k4_narrow_check(ras, dev):
+    """K4 at C=72 (the last chunk of 64 channels holds 8) on a two-image p3
+    map, for each map dtype, s=7 and s=14, with the edge boxes."""
+    from u2seg_torch.dev.time_roi_align_single import K4_HW, K4_STRIDE, k4_boxes
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = torch.randn(2, *K4_HW, NARROW_C, generator=gen, device=dev)
+    rng = np.random.RandomState(11)
+    boxes = k4_boxes(rng, 200)[0].to(dev)
+    bidx = torch.from_numpy(rng.randint(0, 2, len(boxes)).astype(np.int32)).to(dev)
+    worst = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        feat = base.to(dtype)
+        for s in (7, 14):
+            got = ras.roi_align_single(feat, boxes, bidx, s, 1.0 / K4_STRIDE, 2)
+            ref = ras.roi_align_single_ref(feat, boxes, bidx, s, 1.0 / K4_STRIDE, 2)
+            torch.cuda.synchronize()
+            worst[name] = max(worst.get(name, 0.0), float((got - ref).abs().max()))
+            if not (k4_agrees(got, ref, dtype) and got.shape == (len(boxes), s, s, NARROW_C)):
+                raise AssertionError(f"K4 disagrees with its plain version at C={NARROW_C}: "
+                                     f"{name} map, s={s}, max|diff| {worst[name]:.3e}")
+    log(f"[k4] C={NARROW_C} (ragged last chunk), 2 x 100x152 map, {len(boxes)} boxes with the "
+        f"edge boxes, s=7/14: max|kernel-plain| f32 map {worst['f32']:.3e} (tol {F32_TOL:g} * "
+        f"max(1, max|plain|)), bf16 map {worst['bf16']:.3e} (atol {AMP_ATOL} + rtol "
+        f"{AMP_RTOL}) ok")
+    return worst
+
+
+def k4_tall_bins_check(ras, dev):
+    """Boxes as tall and wide as the window at s=1, 2 and 3: a bin spans 8-22
+    map rows under a span of up to 40 columns, more rows than the stage buffer
+    holds (the kernel's global-memory path); for each map dtype."""
+    from u2seg_torch.dev.time_roi_align_single import K4_HW, K4_STRIDE
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    base = torch.randn(1, *K4_HW, 64, generator=gen, device=dev)
+    boxes = torch.tensor([[0.0, 0.0, 320.0, 320.0], [50.0, 30.0, 370.0, 330.0],
+                          [400.0, 300.0, 720.0, 600.0], [8.0, 8.0, 40.0, 300.0],
+                          [900.0, 500.0, 1216.0, 800.0]], device=dev)
+    bidx = torch.zeros(len(boxes), dtype=torch.int32, device=dev)
+    worst, fallback = {}, []
+    for s in (1, 2, 3):
+        wy, wx, _ = ras.pooled_axis_weights(boxes, *K4_HW, s, 2, 1.0 / K4_STRIDE)
+        cells = torch.arange(ras.WIN, device=dev)
+        lo = lambda m: torch.where(m, cells, ras.WIN).amin(-1)
+        hi = lambda m: torch.where(m, cells, -1).amax(-1)
+        bin_rows = (hi(wy != 0) - lo(wy != 0) + 1).amax(-1)    # the tallest bin per ROI
+        span_x = hi((wx != 0).any(1)) - lo((wx != 0).any(1)) + 1
+        stage = ras.launch_plan(s)[1]
+        for dtype, name, nbytes in ((torch.float32, "f32", 4), (torch.bfloat16, "bf16", 2)):
+            cap = stage // (64 * nbytes) // span_x.clamp(min=1)
+            fallback.append(int((bin_rows > cap).sum()))
+            feat = base.to(dtype)
+            got = ras.roi_align_single(feat, boxes, bidx, s, 1.0 / K4_STRIDE, 2)
+            ref = ras.roi_align_single_ref(feat, boxes, bidx, s, 1.0 / K4_STRIDE, 2)
+            torch.cuda.synchronize()
+            worst[name] = max(worst.get(name, 0.0), float((got - ref).abs().max()))
+            if not k4_agrees(got, ref, dtype):
+                raise AssertionError(f"K4 disagrees with its plain version on tall bins: "
+                                     f"{name} map, s={s}, max|diff| {worst[name]:.3e}")
+    if min(fallback) < 1:
+        raise AssertionError(f"the tall-bin case missed the global-memory path: {fallback}")
+    log(f"[k4] tall bins (boxes of 36-40 cells at s=1/2/3, C=64): ROIs with a bin taller than "
+        f"the stage buffer per (s, dtype) {fallback}; max|kernel-plain| f32 map "
+        f"{worst['f32']:.3e}, bf16 map {worst['bf16']:.3e} ok")
+    return dict(worst, fallback_rois=fallback)
+
+
+def ptxas_report(name: str):
+    """Registers and spill bytes of each kernel in the ptxas log beside the
+    built library: {"f32" or "bf16" (the map type): [registers, spill
+    stores, spill loads]}."""
+    from u2seg_torch import _cuda
+
+    out, key = {}, None
+    with open(_cuda.library_path(name) + ".log") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                key = "bf16" if "bfloat16" in line else "f32"
+                out[key] = [0, 0, 0]
+            elif key and "spill stores" in line:
+                nums = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+                out[key][1:] = nums[1:3]
+            elif key and "Used" in line and "registers" in line:
+                out[key][0] = int(line.split("Used")[1].split()[0])
+    return out
+
+
 def phase_k4(dev):
+    from u2seg_torch.dev.time_roi_align_single import K4_HW, K4_STRIDE, k4_boxes
     from u2seg_torch.ops import roi_align_single as ras
     from u2seg_torch.ops.roi_align import roi_align
 
@@ -1119,7 +1141,7 @@ def phase_k4(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     base = torch.randn(1, h, w, c, generator=gen, device=dev)
     rng = np.random.RandomState(5)
-    results = {}
+    results = {"ptxas": ptxas_report("roi_align_single")}
     for s, n in ((7, 1000), (14, 1000)):
         boxes, n_edge = k4_boxes(rng, n)
         boxes = boxes.to(dev)
@@ -1136,12 +1158,9 @@ def phase_k4(dev):
             torch.cuda.synchronize()
             err = (got - ref).abs()
             top = float(ref.abs().max())
-            if dtype == torch.float32:
-                ok = bool((err <= F32_TOL * max(top, 1.0)).all())
-                tol = f"{F32_TOL:g} * max(1, max|plain|)"
-            else:
-                ok = bool((err <= AMP_ATOL + AMP_RTOL * ref.abs()).all())
-                tol = f"atol {AMP_ATOL} + rtol {AMP_RTOL}"
+            ok = k4_agrees(got, ref, dtype)
+            tol = (f"{F32_TOL:g} * max(1, max|plain|)" if dtype == torch.float32
+                   else f"atol {AMP_ATOL} + rtol {AMP_RTOL}")
             ok = ok and got.dtype == torch.float32 and got.shape == (n, s, s, c)
             # the over-long box (index 3, 50 cells wide) lost its far columns,
             # as it does in the TPU kernel
@@ -1154,12 +1173,23 @@ def phase_k4(dev):
             if not ok:
                 raise AssertionError(f"K4 disagrees with its plain version ({name}, s={s})")
         feat = base.to(torch.bfloat16)
+        before = ras.roi_align_single.launches
         empty = ras.roi_align_single(feat, boxes[:0], bidx[:0], s, scale, r)
-        if empty.shape != (0, s, s, c):
-            raise AssertionError("K4 with R=0 returned a wrong shape")
-        # timing at the serving path's dtype: bf16 map, f32 out
-        meta, origin = ras._prep(boxes, h, w, s, r, scale)
-        rec["ms"] = cuda_ms(lambda: ras.launch(feat, origin, bidx, meta, s, r), iters=50)
+        if empty.shape != (0, s, s, c) or ras.roi_align_single.launches != before:
+            raise AssertionError("K4 with R=0 returned a wrong shape or launched")
+        # device time at the serving path's dtype: bf16 map, f32 out
+        threads, stage_bytes = ras.launch_plan(s)
+        shared = ras.shared_bytes(s, stage_bytes)
+        if ras.kernel_shared_bytes(s) != shared:
+            raise AssertionError("the K4 library and its wrapper disagree on shared memory")
+        args = [ras.prepare_launch(base.to(torch.bfloat16), boxes, bidx, s, r, scale)
+                for _ in range(ROTATION)]
+        fns = [lambda a=a: ras.launch(a) for a in args]
+        rec["ms"] = graph_ms(fns[:1], iters=48)
+        rec["cold_ms"] = graph_ms(fns, iters=48)
+        rec["enqueue_ms"] = cuda_ms(fns[0], iters=50)
+        rot_mb = ROTATION * (feat.numel() * 2 + args[0].out.numel() * 4) / 1e6
+        del args, fns
         rec["wrapper_ms"] = cuda_ms(lambda: ras.roi_align_single(
             feat, boxes, bidx, s, scale, r), iters=20)
         rec["plain_ms"] = cuda_ms(lambda: ras.roi_align_single_ref(
@@ -1169,14 +1199,24 @@ def phase_k4(dev):
         nbytes, flops = k4_work(ras, feat, boxes, s, r, scale, 2)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
         rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"[k4] s={s} R={n} bf16 map timing: kernel {rec['ms']:.4f} ms, wrapper "
-            f"(prep+kernel) {rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
-            f"plain gather pooler (ops/roi_align.py, other semantics for boxes past the "
-            f"window) {rec['gather_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-            f"library call: none (torchvision is not installed)")
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   threads=threads, stage_bytes=stage_bytes, shared_bytes=shared)
+        log(f"[k4] s={s} R={n} bf16 map device time (48 launches in one CUDA graph, no host "
+            f"code between them): {rec['ms']:.4f} ms with L2 warm (one launch repeated), "
+            f"{rec['cold_ms']:.4f} ms with L2 exceeded (rotating over {ROTATION} copies of "
+            f"map and output, {rot_mb:.0f} MB); plan: chunk {ras.CHUNK}, {threads} threads, "
+            f"{stage_bytes} B stage, {shared} B shared; launched back to back through the "
+            f"Python wrapper {rec['enqueue_ms']:.4f} ms per launch; wrapper (prep+kernel) "
+            f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, plain gather pooler "
+            f"(ops/roi_align.py, other semantics for boxes past the window) "
+            f"{rec['gather_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> {rec['ms'] / rec['bound_ms']:.1f}x "
+            f"its bound; library call: none (torchvision is not installed)")
         results[s] = rec
+    log(f"[k4] ptxas: registers, spill stores, spill loads (bytes) per map type "
+        f"{results['ptxas']}")
+    results["narrow"] = k4_narrow_check(ras, dev)
+    results["tall_bins"] = k4_tall_bins_check(ras, dev)
     # the kernel's "path": no model path reaches it (in the JAX package only a
     # test calls it), so its path is the public wrapper at these shapes
     ras.roi_align_single.launches = 0                     # the path starts
@@ -1651,7 +1691,6 @@ def main():
             "launches": fwd_launches,
             "max_abs_err": max(k1[s]["max_abs_err_f32"] for s in (7, 14)),
             "ms": k1[7]["ms"],
-            "previous_ms": k1[7]["previous_ms"],
             "plain_ms": k1[7]["plain_ms"],
             "bound_ms": k1[7]["bound_ms"],
             "bound_by": k1[7]["bound_by"],
@@ -1664,7 +1703,6 @@ def main():
             "launches": tr["backward_launches"],
             "max_abs_err": max(k3[s]["max_abs_err_f32"] for s in (7, 14)),
             "ms": k3[7]["ms"],
-            "previous_ms": k3[7]["previous_ms"],
             "plain_ms": k3[7]["plain_ms"],
             "bound_ms": k3[7]["bound_ms"],
             "bound_by": k3[7]["bound_by"],
@@ -1677,6 +1715,7 @@ def main():
             "launches": k4["launches"],
             "max_abs_err": max(k4[s]["max_abs_err_f32"] for s in (7, 14)),
             "ms": k4[7]["ms"],
+            "cold_ms": k4[7]["cold_ms"],
             "plain_ms": k4[7]["plain_ms"],
             "bound_ms": k4[7]["bound_ms"],
             "bound_by": k4[7]["bound_by"],

@@ -1,8 +1,10 @@
 """The port's CUDA kernels vs their plain versions, on the card: the
 multilevel ROIAlign (forward and backward span kernels: main shapes, a ragged
 channel width for each dtype pair, levels smaller than the window, what
-they reject, and the first kernels they are timed against), the single-level
-window ROIAlign and the two window-read probe kernels.
+they reject), the single-level window ROIAlign (the same span design: main
+shapes, a ragged width, bins taller than its stage buffer, no ROIs, what it
+rejects), the shared memory each library reports, and the two window-read
+probe kernels.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -160,37 +162,15 @@ def test_kernels_on_levels_smaller_than_the_window(dev, s):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
 
 
-def test_first_kernels_agree_with_the_span_kernels(dev):
-    """The yardstick kernels (v1) still compute the same function."""
-    feats, boxes, bidx = _inputs(dev, torch.float32)
-    before = rap.multilevel_roi_align_kernel.launches
-    new = rap.launch(rap.prepare_launch(feats, boxes, bidx, 7, 2, STRIDES, 224.0, 4,
-                                        torch.float32))
-    old = rap.launch_v1(rap.prepare_launch(feats, boxes, bidx, 7, 2, STRIDES, 224.0, 4,
-                                           torch.float32))
-    torch.cuda.synchronize()
-    assert rap.multilevel_roi_align_kernel.launches == before + 1   # v1 counts nothing
-    assert float((new - old).abs().max()) <= 1e-4 * max(1.0, float(new.abs().max()))
-    # and the backward one, at the tolerance its plain version is held to
-    g = torch.randn(boxes.shape[0], 7, 7, feats[0].shape[-1], device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(1))
-    ext, st_ext = rap._append_virtual_level(feats, STRIDES)
-    fa = rap._prepare_ext(ext, boxes, bidx, 7, 2, st_ext, 224.0, 4, torch.float32)
-    shapes = [tuple(f.shape) for f in ext]
-    before = rap.multilevel_roi_align_backward.launches
-    new_g = rap.multilevel_roi_align_backward(
-        rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, 7, 2))
-    old_g = rap.multilevel_roi_align_backward_v1(
-        rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, 7, 2))
-    torch.cuda.synchronize()
-    assert rap.multilevel_roi_align_backward.launches == before + 1
-    for a, b in zip(new_g, old_g):
-        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(a.abs().max()))
-    # the library and the wrapper agree on a block's shared memory
+def test_libraries_and_wrappers_agree_on_shared_memory(dev):
+    """What each built library says one block takes is what its wrapper
+    plans for."""
     for s in (7, 14):
         assert rap.kernel_shared_bytes(True, s) == rap.backward_shared_bytes(s)
         assert rap.kernel_shared_bytes(False, s) == rap.forward_shared_bytes(
             s, rap.forward_plan(s)[1])
+    for s in (1, 7, 14, 32):
+        assert ras.kernel_shared_bytes(s) == ras.shared_bytes(s, ras.launch_plan(s)[1])
 
 
 @pytest.mark.parametrize("s", [7, 14])
@@ -278,12 +258,64 @@ def test_single_level_kernel_raises_on_what_it_does_not_take(dev):
         ras.roi_align_single(feat.transpose(1, 2), boxes, bidx, 7, 0.125)
     with pytest.raises(ValueError):         # unsupported dtype
         ras.roi_align_single(feat.double(), boxes, bidx, 7, 0.125)
-    with pytest.raises(ValueError):         # odd channel count
+    with pytest.raises(ValueError, match="multiple of 8"):      # odd channel count
         ras.roi_align_single(feat[..., :63].contiguous(), boxes, bidx, 7, 0.125)
-    with pytest.raises(ValueError):         # map smaller than the window
+    with pytest.raises(ValueError, match="multiple of 8"):      # even, not 16-byte vectors
+        ras.roi_align_single(feat[..., :12].contiguous(), boxes, bidx, 7, 0.125)
+    with pytest.raises(ValueError, match="smaller than"):       # map smaller than the window
         ras.roi_align_single(feat[:, :32].contiguous(), boxes, bidx, 7, 0.125)
-    with pytest.raises(ValueError):         # too many samples per axis
+    with pytest.raises(ValueError, match="s \\* r"):           # too many samples per axis
         ras.roi_align_single(feat, boxes, bidx, 40, 0.125, 2)
+    off = torch.empty(feat.numel() + 2, device=dev)[2:].view(feat.shape).copy_(feat)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ras.roi_align_single(off, boxes, bidx, 7, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_level_kernel_at_a_ragged_width(dev, dtype):
+    """C=72: the last chunk of 64 channels holds 8."""
+    feat, boxes, bidx = _single_inputs(dev, dtype, c=72)
+    for s in (7, 14):
+        got = ras.roi_align_single(feat, boxes, bidx, s, 0.125)
+        ref = ras.roi_align_single_ref(feat, boxes, bidx, s, 0.125)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (boxes.shape[0], s, s, 72)
+        assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_level_kernel_on_bins_taller_than_its_stage_buffer(dev, dtype):
+    """Boxes as large as the window at s=1..3: a bin spans 8-22 map rows under
+    a span of up to 40 columns, more than the stage buffer holds, so those
+    bins read global memory."""
+    feat, _, _ = _single_inputs(dev, dtype)
+    boxes = torch.tensor([[0.0, 0.0, 320.0, 320.0], [50.0, 30.0, 370.0, 330.0],
+                          [400.0, 200.0, 720.0, 520.0], [8.0, 8.0, 40.0, 300.0]],
+                         device=dev)
+    bidx = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    for s in (1, 2, 3):
+        wy, wx, _ = ras.pooled_axis_weights(boxes, *feat.shape[1:3], s, 2, 0.125)
+        cells = torch.arange(ras.WIN, device=dev)
+        lo = lambda m: torch.where(m, cells, ras.WIN).amin(-1)
+        hi = lambda m: torch.where(m, cells, -1).amax(-1)
+        bin_rows = (hi(wy != 0) - lo(wy != 0) + 1).amax(-1)        # tallest bin per ROI
+        span_x = hi((wx != 0).any(1)) - lo((wx != 0).any(1)) + 1
+        cap = ras.launch_plan(s)[1] // (ras.CHUNK * feat.element_size()) // span_x
+        assert bool((bin_rows > cap).any())
+        got = ras.roi_align_single(feat, boxes, bidx, s, 0.125)
+        ref = ras.roi_align_single_ref(feat, boxes, bidx, s, 0.125)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_single_level_kernel_with_no_rois(dev):
+    feat, boxes, bidx = _single_inputs(dev, torch.bfloat16)
+    before = ras.roi_align_single.launches
+    for s in (7, 14):
+        out = ras.roi_align_single(feat, boxes[:0], bidx[:0], s, 0.125)
+        assert out.shape == (0, s, s, feat.shape[-1]) and out.dtype == torch.float32
+    assert ras.roi_align_single.launches == before
 
 
 # ---------------------------------------------------------------------------

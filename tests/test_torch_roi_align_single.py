@@ -1,6 +1,8 @@
 """u2seg_torch.ops.roi_align_single (the port of the single-level window
-ROIAlign kernel) on the CPU: its plain version vs the JAX package's
-``roi_align_pallas`` run in interpret mode, and vs the port's gather pooler.
+ROIAlign kernel) on the CPU: its plain version and the kernel's dense form
+(``Wy @ window @ Wx^T`` with the tables of ``pooled_axis_weights``, r-sample
+mean folded in) vs the JAX package's ``roi_align_pallas`` run in interpret
+mode, and vs the port's gather pooler.
 
 Tolerances: f32 1e-4 (rtol and atol): both sides evaluate the same two
 weight products in f32, in other summation orders. Against the gather
@@ -15,7 +17,7 @@ import torch
 import u2seg_tpu.ops.roi_align_pallas as jrap
 from u2seg_torch.ops.roi_align import roi_align
 from u2seg_torch.ops.roi_align_single import (
-    WIN, roi_align_single, roi_align_single_ref)
+    WIN, pooled_axis_weights, roi_align_single, roi_align_single_ref)
 
 torch.set_num_threads(1)
 
@@ -56,17 +58,32 @@ def feat():
     return np.random.RandomState(0).randn(2, 64, 64, 8).astype(np.float32)
 
 
-@pytest.mark.parametrize("s,r", [(7, 2), (4, 0)])
+def dense_pool(feat, boxes, bidx, s, r, scale):
+    """``Wy @ window @ Wx^T`` per ROI, from the kernel's dense tables."""
+    _, h, w, _ = feat.shape
+    wy, wx, origin = pooled_axis_weights(boxes, h, w, s, r, scale)
+    cells = torch.arange(WIN)
+    rows = origin[:, 0].long()[:, None] + cells
+    cols = origin[:, 1].long()[:, None] + cells
+    window = feat[bidx.long()[:, None, None], rows[:, :, None], cols[:, None, :]]
+    return torch.einsum("rpy,rqx,ryxc->rpqc", wy, wx, window.to(torch.float32))
+
+
+@pytest.mark.parametrize("s,r", [(7, 2), (4, 0), (14, 2)])
 def test_plain_version_matches_the_pallas_kernel(interpret_mode, feat, s, r):
     ref = np.asarray(jrap.roi_align_pallas(
         jnp.asarray(feat), jnp.asarray(BOXES), jnp.asarray(BIDX), s, 0.25, r))
-    got = roi_align_single_ref(torch.from_numpy(feat), torch.from_numpy(BOXES),
-                               torch.from_numpy(BIDX), s, 0.25, r)
+    args = torch.from_numpy(feat), torch.from_numpy(BOXES), torch.from_numpy(BIDX)
+    got = roi_align_single_ref(*args, s, 0.25, r)
     assert got.shape == ref.shape == (len(BOXES), s, s, 8)
     assert got.dtype == torch.float32 and np.isfinite(ref).all()
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    # the kernel's dense form pools the same
+    dense = dense_pool(*args, s, r if r > 0 else 2, 0.25).numpy()
+    np.testing.assert_allclose(dense, ref, rtol=1e-4, atol=1e-4)
     # the over-long box really lost samples: its last output row is empty
     assert np.abs(ref[3, -1]).max() == 0 and np.abs(ref[3, 0]).max() > 0
+    assert np.abs(dense[3, -1]).max() == 0
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_tensors(feat):

@@ -15,10 +15,9 @@ checked on the CPU with numpy-seeded inputs.
     SPAN_BUDGET + 3 cells a side.
 (c) The launch plan's helpers: block size and stage buffer by output size
     (nothing else sets them), shared-memory sizes, and the checks that raise.
-(d) Nothing but the timing functions reaches the first (v1) kernels.
+(d) No first kernel (``_v1``) is left: the span kernels replaced them.
 """
 import dataclasses
-import inspect
 import pathlib
 
 import jax.numpy as jnp
@@ -278,12 +277,12 @@ def test_launch_plan_rejects(kwargs, match):
 
 def test_alignment_check_raises():
     buf = torch.zeros(64, dtype=torch.float32)
-    rap._check_aligned([buf, buf[4:]], "level")               # 16-byte offsets pass
+    rap.check_aligned([buf, buf[4:]], "level")               # 16-byte offsets pass
     with pytest.raises(ValueError, match="16-byte aligned"):
-        rap._check_aligned([buf, buf[1:]], "level")
+        rap.check_aligned([buf, buf[1:]], "level")
     with pytest.raises(ValueError, match="16-byte aligned"):
-        rap._check_aligned([buf[2:]], "level")                # 8-byte aligned is not enough
-    rap._check_aligned([torch.zeros(0)], "level")             # no storage, no launch
+        rap.check_aligned([buf[2:]], "level")                # 8-byte aligned is not enough
+    rap.check_aligned([torch.zeros(0)], "level")             # no storage, no launch
 
 
 def test_roi_spans_of_hand_made_weights():
@@ -297,17 +296,15 @@ def test_roi_spans_of_hand_made_weights():
     assert sp[2][:2] == [4, 4] and sp[2][2] > sp[2][3]
 
 
-def test_only_the_timing_functions_reach_the_first_kernels():
-    """No model path, wrapper or config reaches a ``_v1`` kernel."""
-    root = pathlib.Path(rap.__file__).resolve().parents[1]
-    for path in root.rglob("*.py"):
-        if path.name != "roi_align_ml.py":
-            assert "_v1" not in path.read_text(), path
-    allowed = {"launch_v1", "multilevel_roi_align_backward_v1", "_forward_fn_v1",
-               "_backward_fn_v1"}
-    sources = {name: inspect.getsource(fn)
-               for name, fn in inspect.getmembers(rap, inspect.isfunction)
-               if fn.__module__ == rap.__name__ and name not in allowed}
-    sources["_TrainPooler"] = inspect.getsource(rap._TrainPooler)
-    for name, text in sources.items():
-        assert "_v1" not in text, name
+def test_no_first_kernel_is_left():
+    """No source of the port and no line of ``chip_smoke.py`` names a ``_v1``
+    symbol: the first kernels were removed once every kernel had its span
+    design."""
+    pkg = pathlib.Path(rap.__file__).resolve().parents[1]
+    files = sorted(p for p in pkg.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+    assert {"roi_align_ml.cu", "roi_align_single.cu", "span_common.cuh",
+            "roi_align_ml.py"} <= {p.name for p in files}
+    files.append(pkg.parent / "chip_smoke.py")
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert "_v1" not in line, f"{path}:{n}: {line.strip()}"

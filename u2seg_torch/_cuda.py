@@ -3,7 +3,9 @@
 Each ``u2seg_torch/csrc/<name>.cu`` has a plain C interface. At first use it
 is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/u2seg_torch_kernels/lib<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edit rebuilds) and loaded with ``ctypes``.
+source, every header ``csrc/*.cuh`` and the flags, so an edit of any of them
+rebuilds) and loaded with ``ctypes``. Sources include headers from ``csrc/``
+(``-I``).
 Pointers and the stream cross the boundary as ``c_void_p``. Nothing here runs
 at import time: the CPU tests import every module of the package.
 """
@@ -34,16 +36,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def source_path(name: str) -> str:
+    """``csrc/<name>.cu``, or ``name`` itself where it is a path to a
+    ``.cu`` file elsewhere (a development build of another version)."""
+    if name.endswith(".cu"):
+        return os.path.abspath(name)
+    return os.path.join(CSRC_DIR, name + ".cu")
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    stem = os.path.basename(name)[:-3] if name.endswith(".cu") else name
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together. Returns name -> path of the library; the
-    compiler's report (``-Xptxas=-v``) sits beside it as ``.log``."""
+    """Compile every named source (see ``source_path``) that is not built
+    yet, one ``nvcc`` per source, all started together. Returns name -> path
+    of the library; the compiler's report (``-Xptxas=-v``) sits beside it as
+    ``.log``."""
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
@@ -53,7 +68,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     procs = {}
     for n, p in todo.items():
         tmp = f"{p}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, n + ".cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, source_path(n)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
@@ -62,7 +77,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         with open(paths[n] + ".log", "w") as f:
             f.write(log)
         if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{source_path(n)} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, paths[n])
     if failed:
@@ -71,7 +86,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``source_path(name)``, built first if needed."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(build([name])[name])
     return _LIBS[name]

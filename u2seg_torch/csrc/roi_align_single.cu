@@ -1,5 +1,6 @@
 // Single-level aligned ROIAlign from one fixed window per ROI, for Hopper
-// (sm_90a).
+// (sm_90a): a span kernel (span_common.cuh) with the window kernel's own tap
+// rule.
 //
 // Replaces the TPU kernel _roi_align_kernel (u2seg_tpu/ops/roi_align_pallas.py
 // :62, called through roi_align_pallas, :147-204). Per ROI that kernel copies
@@ -16,39 +17,70 @@
 // - the window origins come from the wrapper (floor(first sample) - 1,
 //   clipped to [0, size - win], x aligned DOWN to a multiple of 8, which was
 //   a TPU copy rule but moves the window);
-// - a sample whose local coordinate falls outside the window's cells
-//   0..win-1 gets NO weight (not an edge clamp, unlike the multilevel
-//   kernel): a box longer than the window loses its far samples;
+// - a tap whose window-local cell falls outside 0..win-1 gets NO weight (not
+//   the multilevel kernel's edge clip): a box longer than the window loses
+//   its far samples;
 // - f32 accumulation and f32 output for every input type.
 //
-// What is not carried over: the window copy into fast memory and the two
-// dense (s*r, win) products. Each sample has at most two non-zero weights
-// per axis, so the kernel keeps per-axis tap tables (two cells, two weights,
-// 1/r folded in) in shared memory and reads the <= 4 r^2 taps of a bin
-// straight from the NHWC map.
+// The design is the multilevel forward's (span_common.cuh): the r-sample mean
+// is folded into dense per-axis weights Wy, Wx (s x win) that each block
+// builds once in shared memory with the tap rule above (WindowRule); one
+// block per (ROI, chunk of 64 channels) copies the rows of the ROI's span
+// (the box of all cells of non-zero weight: inside the window and inside the
+// map, up to 40 x 40 cells) into a fixed stage buffer with 16-byte cp.async,
+// group of output rows by group, and each thread computes 8 channels of one
+// output value (x pass in registers, then y pass) and writes them with two
+// 16-byte streaming stores. A bin taller than the buffer reads global memory
+// with the same arithmetic. Block size and buffer come from the wrapper
+// (launch_plan), by measurement.
 //
-// Work split, as the multilevel kernel's: one block per (ROI, output row);
-// each thread owns a pair of channels (coalesced 4-byte bf16x2 or 8-byte
-// f32x2 loads) and walks the row's s bins.
-//
-// Bound on this card: bytes. Per ROI it writes s*s*C f32 values and reads
-// the touched cells, for 8 r^2 flops per output value.
+// Bound on this card: bytes. Per ROI it writes s*s*C f32 values (200 MB at
+// s=14 for 1000 ROIs at C=256, four times L2) and reads the touched cells of
+// a map that L2 holds, for about 2 * 12 flops per output value. Streaming
+// stores keep the output from evicting the map from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "span_common.cuh"
+
 namespace {
 
-constexpr int kMaxSamples = 64;  // s * r along one axis
-constexpr int kThreads = 128;    // channel pairs per block
+using namespace span;
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+constexpr int kMaxSamples = 64;  // s * r along one axis
+constexpr int kThreads = 256;    // largest block
+
+struct WindowRule {   // one axis of one ROI
+  float c0, bin, size;
+  int origin, dim, win;
+
+  // Window-local coordinate of sample i (of s * r), clamped into the map but
+  // not into the window. Returns whether the sample lies inside [-1, size].
+  __device__ __forceinline__ bool sample(int i, int r, float* local) const {
+    const float rel = static_cast<float>(i / r) +
+                      (static_cast<float>(i % r) + 0.5f) / static_cast<float>(r);
+    const float coord = c0 + rel * bin;
+    const float cc = fminf(fmaxf(coord, 0.0f), size - 1.0f);
+    *local = cc - static_cast<float>(origin);
+    return coord >= -1.0f && coord <= size;
+  }
+
+  // Tap k (0 or 1): its window-local cell and its weight with the 1/r mean
+  // folded in; 0 for a cell outside the window's 0..win-1. The map guard
+  // cannot fire while H, W >= win and the origins are the wrapper's; it keeps
+  // every span inside the map whatever the origins are.
+  __device__ __forceinline__ float tap(float local, bool inside, int k, int r,
+                                       int* cell) const {
+    const float t = floorf(local) + static_cast<float>(k);
+    const float w = fmaxf(0.0f, 1.0f - fabsf(local - t));
+    const bool in_win = t >= 0.0f && t <= static_cast<float>(win - 1);
+    *cell = in_win ? static_cast<int>(t) : 0;
+    const bool ok = inside && in_win && origin + *cell >= 0 && origin + *cell < dim;
+    return ok ? w / static_cast<float>(r) : 0.0f;
+  }
+};
 
 template <typename Tin>
 __global__ void __launch_bounds__(kThreads)
@@ -58,106 +90,88 @@ roi_align_single_kernel(const Tin* __restrict__ feat,     // (B, H, W, C)
                         const float* __restrict__ meta,   // (R, 4): y0, x0, bin_h, bin_w
                         float* __restrict__ out,          // (R, s, s, C)
                         int height, int width, int channels, int s, int r,
-                        int win) {
-  __shared__ int tap_cell[2][kMaxSamples][2];   // [axis][sample][tap]
-  __shared__ float tap_w[2][kMaxSamples][2];
+                        int win, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tables tb = carve_tables(smem + stage_bytes, s, win, win);
 
   const int roi = blockIdx.x;
-  const int py = blockIdx.z;
-  const int n = s * r;
-  for (int t = threadIdx.x; t < 2 * n; t += blockDim.x) {
-    const int axis = t / n;  // 0: y, 1: x
-    const int i = t - axis * n;
-    const float c0 = meta[roi * 4 + axis];
-    const float bin = meta[roi * 4 + 2 + axis];
-    const int org = origin[roi * 2 + axis];
-    const int dim = axis ? width : height;
-    const float size = static_cast<float>(dim);
-    const float rel = static_cast<float>(i / r) +
-                      (static_cast<float>(i % r) + 0.5f) / static_cast<float>(r);
-    const float coord = c0 + rel * bin;
-    const bool inside = coord >= -1.0f && coord <= size;
-    const float cc = fminf(fmaxf(coord, 0.0f), size - 1.0f);
-    const float local = cc - static_cast<float>(org);
-    const float t0 = floorf(local);
-    for (int k = 0; k < 2; ++k) {
-      const float cell_local = t0 + static_cast<float>(k);
-      const float w = fmaxf(0.0f, 1.0f - fabsf(local - cell_local));
-      // a cell outside the window's 0..win-1 has no weight; the map guard
-      // cannot fire while H, W >= win (the launcher checks) and is kept for
-      // memory safety
-      const bool in_win = cell_local >= 0.0f &&
-                          cell_local <= static_cast<float>(win - 1);
-      const int cell = in_win ? org + static_cast<int>(cell_local) : 0;
-      const bool ok = inside && in_win && cell >= 0 && cell < dim;
-      tap_cell[axis][i][k] = ok ? cell : 0;
-      tap_w[axis][i][k] = ok ? w / static_cast<float>(r) : 0.0f;
-    }
-  }
-  __syncthreads();
+  const int oy = origin[roi * 2];
+  const int ox = origin[roi * 2 + 1];
+  build_dense(tb, [&](int axis) {
+    WindowRule a;
+    a.c0 = meta[roi * 4 + axis];
+    a.bin = meta[roi * 4 + 2 + axis];
+    a.origin = axis ? ox : oy;
+    a.dim = axis ? width : height;
+    a.size = static_cast<float>(a.dim);
+    a.win = win;
+    return a;
+  }, s, r, win, win);
+  const int row_elems = width * channels;           // a map row; < 2^31 elements
+  const Tin* window = feat + (static_cast<size_t>(batch[roi]) * height + oy) * row_elems +
+                      static_cast<size_t>(ox) * channels;
+  span_forward<true>(tb, reinterpret_cast<Tin*>(smem), stage_bytes, window, row_elems,
+                     out + static_cast<size_t>(roi) * s * s * channels, channels, s, win,
+                     win);
+}
 
-  const size_t row_stride = static_cast<size_t>(width) * channels;
-  const Tin* base = feat + static_cast<size_t>(batch[roi]) * height * row_stride;
-  const int pairs = channels / 2;
-  for (int cp = blockIdx.y * blockDim.x + threadIdx.x; cp < pairs;
-       cp += gridDim.y * blockDim.x) {
-    const int c = 2 * cp;
-    for (int px = 0; px < s; ++px) {
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int sy = 0; sy < r; ++sy) {
-        const int iy = py * r + sy;
-        for (int ty = 0; ty < 2; ++ty) {
-          const float wy = tap_w[0][iy][ty];
-          if (wy == 0.0f) continue;
-          const Tin* row = base + tap_cell[0][iy][ty] * row_stride + c;
-          for (int sx = 0; sx < r; ++sx) {
-            const int ix = px * r + sx;
-            for (int tx = 0; tx < 2; ++tx) {
-              const float wx = tap_w[1][ix][tx];
-              if (wx == 0.0f) continue;
-              const float2 v = load2(row + static_cast<size_t>(tap_cell[1][ix][tx]) * channels);
-              const float wgt = wy * wx;
-              a0 += wgt * v.x;
-              a1 += wgt * v.y;
-            }
-          }
-        }
-      }
-      *reinterpret_cast<float2*>(
-          out + ((static_cast<size_t>(roi) * s + py) * s + px) * channels + c) =
-          make_float2(a0, a1);
-    }
+int smem_bytes(int s, int win, int stage_bytes) {
+  return stage_bytes + table_bytes(s, win, win);
+}
+
+template <typename Tin>
+cudaError_t launch(const void* feat, int height, int width, int channels,
+                   const int* origin, const int* batch, const float* meta, float* out,
+                   int num_rois, int s, int r, int win, int threads, int stage_bytes,
+                   cudaStream_t stream) {
+  static bool allowed[kMaxDevices] = {};
+  auto kernel = roi_align_single_kernel<Tin>;
+  // the buffer holds at least one row of the widest span
+  if (stage_bytes % 16 != 0 || stage_bytes < win * kChunk * static_cast<int>(sizeof(Tin))) {
+    return cudaErrorInvalidValue;
   }
+  const int smem = smem_bytes(s, win, stage_bytes);
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(num_rois, (channels + kChunk - 1) / kChunk);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const Tin*>(feat), origin, batch,
+                                          meta, out, height, width, channels, s, r, win,
+                                          stage_bytes);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype_in: 0 = float32, 1 = bfloat16. Returns a cudaError_t value.
+// dtype_in: 0 = float32, 1 = bfloat16. threads: block size, a multiple of 32
+// in [max(32, 2 s), 256]; stage_bytes: the block's buffer of staged map cells,
+// a multiple of 16 that holds at least win cells of a chunk (the wrapper
+// passes its launch_plan(s)). feat and out are 16-byte aligned, channels a
+// multiple of 8, H and W at least win. Returns a cudaError_t value.
 extern "C" int u2seg_roi_align_single_forward(
     const void* feat, int batch_size, int height, int width, int channels,
     const int* origin, const int* batch, const float* meta, float* out,
-    int num_rois, int s, int r, int win, int dtype_in, void* stream) {
-  if (s < 1 || r < 1 || s * r > kMaxSamples || channels < 2 ||
-      channels % 2 != 0 || s > 65535 || batch_size < 1 || win < 1 ||
-      height < win || width < win) {
+    int num_rois, int s, int r, int win, int dtype_in, int threads,
+    int stage_bytes, void* stream) {
+  if (s < 1 || r < 1 || s * r > kMaxSamples || channels < 8 || channels % 8 != 0 ||
+      (channels + kChunk - 1) / kChunk > 65535 || batch_size < 1 || win < 1 ||
+      height < win || width < win || threads % 32 != 0 || threads < 32 ||
+      threads < 2 * s || threads > kThreads || dtype_in < 0 || dtype_in > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rois == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pairs = channels / 2;
-  dim3 grid(num_rois, (pairs + kThreads - 1) / kThreads, s);
-  if (dtype_in == 0) {
-    roi_align_single_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(feat), origin, batch, meta, out, height,
-        width, channels, s, r, win);
-  } else if (dtype_in == 1) {
-    roi_align_single_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(feat), origin, batch, meta, out,
-        height, width, channels, s, r, win);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype_in == 0
+          ? launch<float>(feat, height, width, channels, origin, batch, meta, out,
+                          num_rois, s, r, win, threads, stage_bytes, st)
+          : launch<__nv_bfloat16>(feat, height, width, channels, origin, batch, meta,
+                                  out, num_rois, s, r, win, threads, stage_bytes, st);
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one block, in bytes.
+extern "C" int u2seg_roi_align_single_smem_bytes(int s, int win, int stage_bytes) {
+  return smem_bytes(s, win, stage_bytes);
 }
 
 extern "C" const char* u2seg_cuda_error_string(int code) {

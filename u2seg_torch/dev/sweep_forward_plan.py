@@ -71,8 +71,43 @@ def proposals(rng, n: int, h: int, w: int) -> torch.Tensor:
     return torch.from_numpy(b.astype(np.float32))
 
 
-def sweep(dev, s: int, n: int, candidates=CANDIDATES):
-    """{"threads/stage": [warm ms pass 1, pass 2, cold ms pass 1, pass 2]}."""
+def time_plans(module, name: str, fns, s: int, candidates=CANDIDATES):
+    """``module.<name>`` (a function of s giving threads and stage bytes)
+    replaced by each candidate in turn, twice, the second pass in reverse
+    order: {"threads/stage": [warm pass 1, pass 2, cold pass 1, pass 2]},
+    warm from ``fns[:1]``, cold from all of ``fns``."""
+    shipped = getattr(module, name)
+    rows = {f"{t}/{b >> 10}K": [] for t, b in candidates}
+    try:
+        for order in (candidates, candidates[::-1]):
+            for threads, stage in order:
+                if threads < 2 * s:       # the sources need a thread per (axis, bin)
+                    continue
+                setattr(module, name, lambda _s, plan=(threads, stage): plan)
+                rows[f"{threads}/{stage >> 10}K"] += [graph_ms(fns[:1]), graph_ms(fns)]
+    finally:
+        setattr(module, name, shipped)
+    return {k: [v[0], v[2], v[1], v[3]] for k, v in rows.items() if v}
+
+
+def print_plans(title: str, rows, shipped: str, mark: str) -> None:
+    print(f"[sweep] {title}, device ms per launch (graph of 48): threads/stage "
+          f"buffer: L2 warm pass 1, pass 2 | L2 exceeded pass 1, pass 2", flush=True)
+    for key, v in rows.items():
+        tag = f"  <- {mark}" if key == shipped else ""
+        print(f"[sweep]   {key:>8}: {v[0]:.4f} {v[1]:.4f} | {v[2]:.4f} {v[3]:.4f}{tag}",
+              flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sweep(dev, s: int, n: int):
+    """The forward kernel's plans at output size s over R=n proposals."""
     h, w, c = 800, 1216, 256
     gen = torch.Generator(device=dev).manual_seed(0)
     sets = [[torch.randn(1, h // st, w // st, c, generator=gen, device=dev)
@@ -81,20 +116,7 @@ def sweep(dev, s: int, n: int, candidates=CANDIDATES):
     bidx = torch.zeros(n, dtype=torch.int32, device=dev)
     args = [rap.prepare_launch(fs, boxes, bidx, s, 2, STRIDES, 224.0, 4,
                                torch.bfloat16) for fs in sets]
-    fns = [lambda a=a: rap.launch(a) for a in args]
-    shipped = rap.forward_plan
-    rows = {f"{t}/{b >> 10}K": [] for t, b in candidates}
-    try:
-        for order in (candidates, candidates[::-1]):
-            for threads, stage in order:
-                if threads < 2 * s:       # the source needs a thread per (axis, bin)
-                    continue
-                rap.forward_plan = lambda _s, plan=(threads, stage): plan
-                key = f"{threads}/{stage >> 10}K"
-                rows[key] += [graph_ms(fns[:1]), graph_ms(fns)]
-    finally:
-        rap.forward_plan = shipped
-    return {k: [v[0], v[2], v[1], v[3]] for k, v in rows.items() if v}
+    return time_plans(rap, "forward_plan", [lambda a=a: rap.launch(a) for a in args], s)
 
 
 def main():
@@ -104,23 +126,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("sweep_forward_plan: no CUDA device")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(f"[device] {smi}", flush=True)
     report = {"smi": smi}
     for s, n in ((7, 1000), (14, 100), (14, 256)):
         rows = sweep(dev, s, n)
         threads, stage = rap.forward_plan(s)
-        shipped = f"{threads}/{stage >> 10}K"
         report[f"s{s}_R{n}"] = rows
-        print(f"[sweep] s={s} R={n} bf16, device ms per launch (graph of 48): "
-              f"threads/stage buffer: L2 warm pass 1, pass 2 | L2 exceeded pass 1, pass 2",
-              flush=True)
-        for key, v in rows.items():
-            mark = "  <- forward_plan" if key == shipped else ""
-            print(f"[sweep]   {key:>8}: {v[0]:.4f} {v[1]:.4f} | {v[2]:.4f} {v[3]:.4f}{mark}",
-                  flush=True)
+        print_plans(f"s={s} R={n} bf16", rows, f"{threads}/{stage >> 10}K", "forward_plan")
     if a.report:
         os.makedirs(os.path.dirname(os.path.abspath(a.report)), exist_ok=True)
         with open(a.report, "w") as f:

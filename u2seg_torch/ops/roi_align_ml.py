@@ -41,13 +41,9 @@ backward
 keeps the ROI's cotangent tile in shared memory and makes one 16-byte vector
 atomic per (span cell, 4 channels). Both are bound by bytes on the card. That
 is why C must be a multiple of 8 and all storage 16-byte aligned:
-``_check_inputs`` and ``_prepare_ext`` raise otherwise.
-
-``launch_v1`` and ``multilevel_roi_align_backward_v1`` launch the first
-kernels of the source (one block per ROI and output row, every tap fetched
-from L1/L2, one 8-byte atomic per tap). They exist so that
-``python3 chip_smoke.py --phases k1,k3`` can time old against new in one run
-on one card; nothing else calls them and they count no launch.
+``_check_inputs`` and ``_prepare_ext`` raise otherwise. The single-level
+window kernel (``ops/roi_align_single.py``) is built on the same design and
+shares the launch-plan helpers below.
 """
 from __future__ import annotations
 
@@ -81,10 +77,11 @@ ALIGN = 16                 # bytes: every global access is a 16-byte vector
 CHANNEL_MULTIPLE = 8       # 8 bf16 = 16 bytes; f32 output units are 8 wide too
 
 
-def table_bytes(s: int) -> int:
-    """Shared memory of one block's dense weight tables: Wy (s, WIN_Y), Wx
-    (s, WIN), per-bin and per-cell ranges (``table_bytes`` of the source)."""
-    return 4 * (s * (WIN_Y + WIN) + 4 * s + 2 * (WIN_Y + WIN))
+def table_bytes(s: int, win_y: int = WIN_Y, win_x: int = WIN) -> int:
+    """Shared memory of one block's dense weight tables: Wy (s, win_y), Wx
+    (s, win_x), per-bin and per-cell ranges (``table_bytes`` of
+    ``csrc/span_common.cuh``)."""
+    return 4 * (s * (win_y + win_x) + 4 * s + 2 * (win_y + win_x))
 
 
 def forward_shared_bytes(s: int, stage_bytes: int = STAGE_BYTES) -> int:
@@ -121,7 +118,8 @@ def check_launch_plan(s: int, r: int, channels: int, shared_bytes: int) -> None:
                          f"block, above {MAX_SHARED_BYTES}")
 
 
-def _check_aligned(tensors, what: str) -> None:
+def check_aligned(tensors, what: str) -> None:
+    """Raise unless every tensor's storage is ``ALIGN``-byte aligned."""
     if any(t.data_ptr() % ALIGN for t in tensors):
         raise ValueError(f"{what} storage must be {ALIGN}-byte aligned")
 
@@ -405,7 +403,7 @@ def _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
     """``prepare_launch`` on a level list that already ends in the virtual
     level."""
     feats = [f.contiguous() for f in feats]
-    _check_aligned(feats, "level")
+    check_aligned(feats, "level")
     dims = tuple((f.shape[1], f.shape[2]) for f in feats)
     prep = _ml_prep(boxes, dims, strides_ext, s, r, canonical_box_size,
                     canonical_level)
@@ -415,7 +413,7 @@ def _prepare_ext(feats, boxes, batch_idx, s, r, strides_ext,
                          prep["bin_w"]], dim=1).contiguous()
     out = torch.empty((boxes.shape[0], s, s, feats[0].shape[-1]),
                       dtype=out_dtype, device=boxes.device)
-    _check_aligned([roi_i, roi_f, out], "ROI table and output")
+    check_aligned([roi_i, roi_f, out], "ROI table and output")
     return LaunchArgs(feats, roi_i, roi_f, out, s, r)
 
 
@@ -427,31 +425,18 @@ def _c_fn(name: str, argtypes):
     return lib, fn
 
 
-_FORWARD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                 + [ctypes.c_int] * 8)
-_BACKWARD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-
-
 @functools.lru_cache(maxsize=None)
 def _forward_fn():
     return _c_fn("u2seg_roi_align_ml_forward",
-                 _FORWARD_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-
-
-@functools.lru_cache(maxsize=None)
-def _forward_fn_v1():
-    return _c_fn("u2seg_roi_align_ml_forward_v1", _FORWARD_ARGS + [ctypes.c_void_p])
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_fn():
-    return _c_fn("u2seg_roi_align_ml_backward", _BACKWARD_ARGS)
-
-
-@functools.lru_cache(maxsize=None)
-def _backward_fn_v1():
-    return _c_fn("u2seg_roi_align_ml_backward_v1", _BACKWARD_ARGS)
+    return _c_fn("u2seg_roi_align_ml_backward",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def kernel_shared_bytes(backward: bool, s: int) -> int:
@@ -469,36 +454,22 @@ def _level_tables(levels):
     return as_ptr(ptrs), as_ptr(hs), as_ptr(ws), (ptrs, hs, ws)
 
 
-def _forward_call(a: LaunchArgs, entry, plan=()) -> None:
-    """Call a forward entry point of the library (``entry``: library and
-    function) on ``a``; ``plan`` are the entry point's own trailing ints."""
-    lib, fn = entry
-    ptrs, hs, ws, _keep = _level_tables(a.levels)
-    n_roi, _, _, c = a.out.shape
-    code = fn(ptrs, hs, ws, len(a.levels), a.roi_i.data_ptr(),
-              a.roi_f.data_ptr(), a.out.data_ptr(), n_roi, c, a.s, a.r,
-              WIN_Y, WIN, _DTYPE_CODES[a.levels[0].dtype],
-              _DTYPE_CODES[a.out.dtype], *plan,
-              torch.cuda.current_stream(a.out.device).cuda_stream)
-    _cuda.check(lib, code, "roi_align_ml launch")
-
-
 def launch(a: LaunchArgs) -> torch.Tensor:
     """Launch the span forward kernel of ``csrc/roi_align_ml.cu`` on the
     current stream; counts the launch in
     ``multilevel_roi_align_kernel.launches``."""
     threads, stage_bytes = forward_plan(a.s)
-    check_launch_plan(a.s, a.r, a.out.shape[-1],
-                      forward_shared_bytes(a.s, stage_bytes))
-    _forward_call(a, _forward_fn(), (threads, stage_bytes))
+    n_roi, _, _, c = a.out.shape
+    check_launch_plan(a.s, a.r, c, forward_shared_bytes(a.s, stage_bytes))
+    lib, fn = _forward_fn()
+    ptrs, hs, ws, _keep = _level_tables(a.levels)
+    code = fn(ptrs, hs, ws, len(a.levels), a.roi_i.data_ptr(),
+              a.roi_f.data_ptr(), a.out.data_ptr(), n_roi, c, a.s, a.r,
+              WIN_Y, WIN, _DTYPE_CODES[a.levels[0].dtype],
+              _DTYPE_CODES[a.out.dtype], threads, stage_bytes,
+              torch.cuda.current_stream(a.out.device).cuda_stream)
+    _cuda.check(lib, code, "roi_align_ml launch")
     multilevel_roi_align_kernel.launches += 1
-    return a.out
-
-
-def launch_v1(a: LaunchArgs) -> torch.Tensor:
-    """The first forward kernel on the same arguments: a yardstick for
-    ``chip_smoke.py``, on no other path and counted nowhere."""
-    _forward_call(a, _forward_fn_v1())
     return a.out
 
 
@@ -528,36 +499,24 @@ def prepare_backward(g, roi_i, roi_f, shapes, s, r) -> BackwardArgs:
     g = g.to(torch.float32).contiguous()
     grads = [torch.empty(sh, dtype=torch.float32, device=g.device)
              for sh in shapes]
-    _check_aligned([g, *grads], "cotangent and gradient")
+    check_aligned([g, *grads], "cotangent and gradient")
     return BackwardArgs(g, roi_i, roi_f, grads, s, r)
-
-
-def _backward_call(a: BackwardArgs, entry) -> None:
-    """Call a backward entry point of the library (library and function)."""
-    lib, fn = entry
-    ptrs, hs, ws, _keep = _level_tables(a.grads)
-    n_roi, _, _, c = a.g.shape
-    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0],
-              a.roi_i.data_ptr(), a.roi_f.data_ptr(), a.g.data_ptr(), n_roi, c,
-              a.s, a.r, WIN_Y, WIN,
-              torch.cuda.current_stream(a.g.device).cuda_stream)
-    _cuda.check(lib, code, "roi_align_ml backward launch")
 
 
 def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
     """Launch the span backward kernel of ``csrc/roi_align_ml.cu`` on the
     current stream: zero ``a.grads``, then add every ROI's span cotangent into
     them. Counts the launch in ``multilevel_roi_align_backward.launches``."""
-    check_launch_plan(a.s, a.r, a.g.shape[-1], backward_shared_bytes(a.s))
-    _backward_call(a, _backward_fn())
+    n_roi, _, _, c = a.g.shape
+    check_launch_plan(a.s, a.r, c, backward_shared_bytes(a.s))
+    lib, fn = _backward_fn()
+    ptrs, hs, ws, _keep = _level_tables(a.grads)
+    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0],
+              a.roi_i.data_ptr(), a.roi_f.data_ptr(), a.g.data_ptr(), n_roi, c,
+              a.s, a.r, WIN_Y, WIN,
+              torch.cuda.current_stream(a.g.device).cuda_stream)
+    _cuda.check(lib, code, "roi_align_ml backward launch")
     multilevel_roi_align_backward.launches += 1
-    return a.grads
-
-
-def multilevel_roi_align_backward_v1(a: BackwardArgs) -> List[torch.Tensor]:
-    """The first backward kernel on the same arguments: a yardstick for
-    ``chip_smoke.py``, on no other path and counted nowhere."""
-    _backward_call(a, _backward_fn_v1())
     return a.grads
 
 

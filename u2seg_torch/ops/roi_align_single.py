@@ -13,16 +13,31 @@ the two poolers agree. Maps smaller than the window are not supported.
 CUDA tensors launch ``csrc/roi_align_single.cu`` or raise. It counts its
 launches in ``roi_align_single.launches``. Output is ``(R, s, s, C)`` f32 for
 every input type.
+
+The kernel is a span kernel, as the multilevel forward is
+(``ops/roi_align_ml.py``; the source's header has the detail): the r-sample
+mean is folded into dense per-axis weights ``Wy``, ``Wx`` (R, s, WIN)
+(``pooled_axis_weights`` returns them), the output of one ROI is
+``Wy @ window @ Wx^T``, and every cell of non-zero weight lies inside the
+window and the map. One block serves one (ROI, chunk of ``CHUNK`` = 64
+channels) and copies the rows of the ROI's span into a stage buffer in shared
+memory with 16-byte copies; block size and buffer come from ``launch_plan``.
+So C must be a multiple of 8 and storage 16-byte aligned: ``check_contract``
+raises otherwise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
 from u2seg_torch import _cuda
 from u2seg_torch.ops.consts import scalar
+from u2seg_torch.ops.roi_align_ml import (
+    CHUNK, check_aligned, check_launch_plan, table_bytes)
 
 WIN = 40      # window cells per axis
 
@@ -66,6 +81,18 @@ def _axis_weights(c0, binsz, size: int, origin, s: int, r: int) -> torch.Tensor:
     return wgt * inside[:, :, None]
 
 
+def pooled_axis_weights(boxes: torch.Tensor, h: int, w: int, s: int, r: int,
+                        spatial_scale: float):
+    """The kernel's dense per-axis tables: ``Wy``, ``Wx`` (R, s, WIN) f32 over
+    the window's cells with the r-sample mean folded in, and the window
+    origins (R, 2) int32. One ROI pools to ``Wy @ window @ Wx^T``."""
+    meta, origin = _prep(boxes, h, w, s, r, spatial_scale)
+    wy = _axis_weights(meta[:, 0], meta[:, 2], h, origin[:, 0], s, r)
+    wx = _axis_weights(meta[:, 1], meta[:, 3], w, origin[:, 1], s, r)
+    fold = lambda t: t.reshape(-1, s, r, WIN).sum(dim=2) * (1.0 / r)
+    return fold(wy), fold(wx), origin
+
+
 def roi_align_single_ref(features: torch.Tensor, boxes: torch.Tensor,
                          batch_idx: torch.Tensor, output_size: int,
                          spatial_scale: float,
@@ -91,15 +118,37 @@ def roi_align_single_ref(features: torch.Tensor, boxes: torch.Tensor,
     return out.reshape(boxes.shape[0], s, r, s, r, c).mean(dim=(2, 4))
 
 
-@functools.lru_cache(maxsize=None)
-def _forward_fn():
-    lib = _cuda.load("roi_align_single")
-    fn = lib.u2seg_roi_align_single_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    return lib, fn
+def launch_plan(s: int) -> Tuple[int, int]:
+    """Block size and stage buffer of the launch: 128 threads and 24 KB for
+    every output size, measured fastest on the card at s=7 and s=14 among 15
+    plans (``python3 -m u2seg_torch.dev.time_roi_align_single``; a 14 x 14
+    output runs 10% faster than with 256 threads and 48 KB). 128 threads
+    cover the 2 s table builders of every s the kernel takes (s * r <= 64),
+    and 24 KB hold a row of the widest span (WIN cells of CHUNK f32
+    channels), as the source requires."""
+    return 128, 24576
+
+
+def shared_bytes(s: int, stage_bytes: int) -> int:
+    """Dynamic shared memory of one block: stage buffer + the dense tables
+    (``smem_bytes`` of the source)."""
+    return stage_bytes + table_bytes(s, WIN, WIN)
+
+
+def check_contract(features: torch.Tensor, s: int, r: int) -> None:
+    """Raise on a map or a launch the kernel does not take: dtype, layout,
+    size, channels (a multiple of 8), s * r, shared memory and alignment.
+    Works on tensors of any device."""
+    if features.dim() != 4 or not features.is_contiguous():
+        raise ValueError("features must be a contiguous (B, H, W, C) tensor")
+    if features.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {features.dtype}")
+    _, h, w, c = features.shape
+    if h < WIN or w < WIN:
+        raise ValueError(f"feature map {h} x {w} is smaller than the "
+                         f"{WIN} x {WIN} window")
+    check_launch_plan(s, r, c, shared_bytes(s, launch_plan(s)[1]))
+    check_aligned([features], "feature map")
 
 
 def _check_inputs(features, boxes, batch_idx, s, r):
@@ -107,15 +156,9 @@ def _check_inputs(features, boxes, batch_idx, s, r):
     dev = boxes.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if (features.device != dev or features.dim() != 4
-            or not features.is_contiguous()):
-        raise ValueError("features must be a contiguous (B, H, W, C) tensor "
-                         "on the boxes' device")
-    if features.dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {features.dtype}")
-    if features.shape[3] % 2 or s * r > 64 or features.data_ptr() % 8:
-        raise ValueError("kernel needs an even C, s*r <= 64 and 8-byte "
-                         "aligned storage")
+    if features.device != dev:
+        raise ValueError("features must lie on the boxes' device")
+    check_contract(features, s, r)
     if (boxes.dtype != torch.float32 or boxes.dim() != 2 or boxes.shape[1] != 4
             or batch_idx.shape != boxes.shape[:1] or batch_idx.device != dev):
         raise ValueError("boxes must be (R, 4) float32 with (R,) batch_idx")
@@ -137,29 +180,71 @@ def roi_align_single(features: torch.Tensor, boxes: torch.Tensor,
         sampling_ratio = 2
     s, r = output_size, sampling_ratio
     _check_inputs(features, boxes, batch_idx, s, r)
-    b, h, w, c = features.shape
+    return launch(prepare_launch(features, boxes, batch_idx, s, r, spatial_scale))
+
+
+@dataclasses.dataclass
+class LaunchArgs:
+    """Everything one launch reads and writes."""
+    features: torch.Tensor   # (B, H, W, C) f32 or bf16
+    origin: torch.Tensor     # (R, 2) int32: window oy, ox
+    batch: torch.Tensor      # (R,) int32
+    meta: torch.Tensor       # (R, 4) f32: y0, x0, bin_h, bin_w (map coords)
+    out: torch.Tensor        # (R, s, s, C) f32
+    s: int
+    r: int
+
+
+def prepare_launch(features, boxes, batch_idx, s, r, spatial_scale) -> LaunchArgs:
+    """The wrapper's device-side prep: bin geometry and window origins (torch
+    ops on the card), and the output buffer."""
+    _, h, w, c = features.shape
     meta, origin = _prep(boxes, h, w, s, r, spatial_scale)
-    return launch(features, origin, batch_idx.to(torch.int32).contiguous(),
-                  meta, s, r)
+    out = torch.empty((boxes.shape[0], s, s, c), dtype=torch.float32,
+                      device=features.device)
+    check_aligned([out], "output")
+    return LaunchArgs(features, origin, batch_idx.to(torch.int32).contiguous(),
+                      meta, out, s, r)
 
 
-def launch(features, origin, batch_idx, meta, s: int, r: int) -> torch.Tensor:
+def _c_fn(name: str, argtypes):
+    lib = _cuda.load("roi_align_single")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_fn():
+    return _c_fn("u2seg_roi_align_single_forward",
+                 [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def kernel_shared_bytes(s: int) -> int:
+    """What the built library itself says one block takes (builds it)."""
+    _, fn = _c_fn("u2seg_roi_align_single_smem_bytes", [ctypes.c_int] * 3)
+    return fn(s, WIN, launch_plan(s)[1])
+
+
+def launch(a: LaunchArgs) -> torch.Tensor:
     """Launch ``csrc/roi_align_single.cu`` on the current stream; counts the
     launch in ``roi_align_single.launches``."""
-    lib, fn = _forward_fn()
-    b, h, w, c = features.shape
-    n_roi = origin.shape[0]
-    out = torch.empty((n_roi, s, s, c), dtype=torch.float32,
-                      device=features.device)
+    n_roi = a.origin.shape[0]
     if n_roi == 0:          # nothing to launch, nothing to count
-        return out
-    code = fn(features.data_ptr(), b, h, w, c, origin.data_ptr(),
-              batch_idx.data_ptr(), meta.data_ptr(), out.data_ptr(), n_roi,
-              s, r, WIN, _DTYPE_CODES[features.dtype],
-              torch.cuda.current_stream(features.device).cuda_stream)
+        return a.out
+    lib, fn = _forward_fn()
+    b, h, w, c = a.features.shape
+    threads, stage_bytes = launch_plan(a.s)
+    check_launch_plan(a.s, a.r, c, shared_bytes(a.s, stage_bytes))
+    code = fn(a.features.data_ptr(), b, h, w, c, a.origin.data_ptr(),
+              a.batch.data_ptr(), a.meta.data_ptr(), a.out.data_ptr(), n_roi,
+              a.s, a.r, WIN, _DTYPE_CODES[a.features.dtype], threads, stage_bytes,
+              torch.cuda.current_stream(a.out.device).cuda_stream)
     _cuda.check(lib, code, "roi_align_single launch")
     roi_align_single.launches += 1
-    return out
+    return a.out
 
 
 roi_align_single.launches = 0
