@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,train,train_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -23,7 +23,9 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    levels, f32 cotangent), the budget-edge boxes and R=0 included, and at
    C=72; its device time the same way (each launch first zero-fills 183 MB
    of gradient levels, which exceeds L2, so every launch finds its inputs
-   cold);
+   cold); two runs on the same inputs (its atomics add in another order each
+   time): max|run1 - run2| and the share of elements that differ, and the
+   backward must raise under ``torch.use_deterministic_algorithms(True)``;
 4. serve: the default Config() at full width (R50-FPN, 3-stage cascade over
    800 classes, masks, 28 sem-seg classes, bf16) with seeded weights serves 4
    requests (3 at 800x1216, 1 at 512x832, b=1); the forward kernel's launch
@@ -78,7 +80,27 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    peak memory;
 11. eval_cpu: the tiny config in f32 through the predictor on the card
    (kernels) and on the CPU (plain versions), ``device_render=True,
-   device_resize=True``: records, maps and segment tables.
+   device_resize=True``: records, maps and segment tables;
+12. train_loop: ``DefaultTrainer`` at full width (the default Config(), b=2
+   at 800x1344, bf16) inside ``parallel.launch`` with one NCCL rank
+   (``file://`` rendezvous): 6 steps from ``testing.fake_loader`` batches
+   with ``build_hooks()`` + ``PreciseBN(period=4, num_iters=2)``, a
+   checkpoint every 3 steps; then a second trainer ``resume_or_load``s and
+   takes 2 more. Fails unless every total loss is finite, ``metrics.json``
+   has a line per written iteration, the checkpoints exist and the resume
+   starts at iteration 6 with the saved parameters exactly, each step
+   launches K1 x4 and K3 x4 (PreciseBN's forwards 4 K1 each and no K3), and
+   PreciseBN moved the running statistics. Prints IterationTimer's step time
+   beside phase train's bare step, checkpoint size, save/load ms and peak
+   memory;
+13. ddp: two gloo ranks on the one card (spawned processes, their own CUDA
+   contexts), the same config, b=1 per rank (global 2 at 800x1344), 2 steps
+   of ``DefaultTrainer``: every parameter and BN buffer bit-identical on
+   both ranks after each step (one checksum per tensor gathered on the
+   CPU), finite losses, SyncBN statistics moved, K1/K3 4 + 4 per step on
+   each rank; step time per rank;
+14. ddp_cpu: ``entry.dryrun_multichip(2)``, one data-parallel step of the
+   tiny config over two gloo processes on the CPU.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -544,9 +566,54 @@ def phase_kernel_backward(dev):
             f"16-byte atomics {sp['touched_cells'] * c // 4}; forward kernel at these shapes (f32 out) "
             f"{rec['fwd_ms']:.4f} ms; library call: none (no single PyTorch op "
             f"computes the window transpose and its scatter)")
+        rec["repeat"] = k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides)
         results[s] = rec
     results["narrow"] = narrow_backward_check(rap, dev)
     return results
+
+
+def k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides):
+    """K3 adds with atomics whose order changes from run to run: two runs on
+    the same inputs (bf16 levels, f32 cotangent: the train path's types), its
+    f32 level gradients and the bf16 gradients the model receives. Then the
+    backward under torch's deterministic mode must raise."""
+    runs = []
+    for _ in range(2):
+        runs.append([t.clone() for t in rap.multilevel_roi_align_backward(ba)])
+    leaves = [f.detach().clone().requires_grad_() for f in feats]
+    out = rap.multilevel_roi_align_train(leaves, boxes, bidx, s, strides)
+    bf = [torch.autograd.grad(out, leaves, g, retain_graph=True) for _ in range(2)]
+    torch.cuda.synchronize()
+
+    def diff(a_list, b_list):
+        d = [(a.float() - b.float()).abs() for a, b in zip(a_list, b_list)]
+        n = sum(t.numel() for t in d)
+        return dict(max_abs=max(float(t.max()) for t in d),
+                    share=sum(int((t != 0).sum()) for t in d) / n,
+                    grad_max=max(float(a.float().abs().max()) for a in a_list))
+
+    rec = dict(f32=diff(*runs), bf16=diff(*bf))
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.autograd.grad(out, leaves, g)
+        raised = False
+    except RuntimeError as e:
+        raised = "deterministic" in str(e)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    f, b = rec["f32"], rec["bf16"]
+    ok = raised and f["max_abs"] <= F32_TOL * max(1.0, f["grad_max"])
+    log(f"[k3] s={s} R={boxes.shape[0]} two runs on the same inputs: f32 level gradients "
+        f"max|run1-run2| {f['max_abs']:.3e} (max|grad| {f['grad_max']:.2f}), "
+        f"{f['share']:.3%} of elements differ; bf16 gradients max|run1-run2| "
+        f"{b['max_abs']:.3e}, {b['share']:.4%} differ; under "
+        f"torch.use_deterministic_algorithms(True) the backward raises: {raised} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K3 repeatability or its deterministic-mode check failed: {rec}")
+    rec["raises"] = raised
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1008,6 +1075,382 @@ def phase_train_cpu_parity(dev):
     if not (ok_a and ok_b):
         raise AssertionError(f"card and CPU train steps disagree: {res}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-14: the hook-driven training loop, data parallelism
+# ---------------------------------------------------------------------------
+
+def full_width_loader(cfg, n: int, b: int = 2):
+    """``n`` global batches of ``testing.fake_loader`` at the train bucket
+    (800x1344, 20 gt boxes with 64x64 mask patches, the config's classes),
+    drawn before training so the loop's step time holds no data drawing."""
+    from u2seg_torch.testing import fake_loader
+
+    (h, w) = TRAIN_HW
+    loader = fake_loader(np.random.RandomState(0), b=b, h=h, w=w, g=20, patch=64,
+                         num_classes=cfg.model.roi_heads.num_classes,
+                         num_stuff=cfg.model.sem_seg_head.num_classes)
+    return [next(loader) for _ in range(n)]
+
+
+def kernel_counts():
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    return (rap.multilevel_roi_align_kernel.launches,
+            rap.multilevel_roi_align_backward.launches)
+
+
+def reset_kernel_counts():
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    rap.multilevel_roi_align_kernel.launches = 0
+    rap.multilevel_roi_align_backward.launches = 0
+
+
+def step_probe_hooks(record: dict):
+    """Two hooks: the first (registered before every other hook) notes the
+    kernel counts and the wall time around ``run_step`` and the BN
+    statistics after it; the second (registered last) sees the statistics
+    once every other hook, PreciseBN included, has run."""
+    from u2seg_torch.engine.hooks import HookBase
+    from u2seg_torch.engine.trainer import bn_running_stats
+
+    class First(HookBase):
+        def before_step(self):
+            self._counts = kernel_counts()
+            self._t0 = time.perf_counter()
+
+        def after_step(self):
+            ms = (time.perf_counter() - self._t0) * 1e3    # run_step synced (.tolist)
+            k1, k3 = kernel_counts()
+            record.setdefault("steps", []).append(dict(
+                iter=self.trainer.iter, ms=ms, k1=k1 - self._counts[0],
+                k3=k3 - self._counts[1]))
+            record["stats_after_step"] = [t.clone() for t in bn_running_stats(self.trainer.model)]
+
+    class Last(HookBase):
+        def after_step(self):
+            now = bn_running_stats(self.trainer.model)
+            moved = max(float((a - b).abs().max())
+                        for a, b in zip(now, record["stats_after_step"]))
+            record.setdefault("hook_moved_stats", []).append((self.trainer.iter, moved))
+
+    return First(), Last()
+
+
+def phase_train_loop(dev, bare_ms=None, steps: int = 6, resumed_steps: int = 2):
+    """``DefaultTrainer`` at full width (the default Config(), b=2 at
+    800x1344, bf16) inside ``launch`` with one NCCL rank (``file://``
+    rendezvous): 6 steps with the default hooks + PreciseBN(period=4,
+    num_iters=2), checkpoints every 3 steps; then a second trainer resumes
+    from the last checkpoint and takes 2 more steps."""
+    import tempfile
+
+    from u2seg_torch.config import Config
+    from u2seg_torch.engine.precise_bn import PreciseBN
+    from u2seg_torch.engine.train_loop import DefaultTrainer, batch_from_numpy
+    from u2seg_torch.engine.trainer import bn_running_stats
+    from u2seg_torch.parallel.launch import launch
+    from u2seg_torch.parallel.mesh import shard_batch
+
+    res = {}
+
+    def main(out_dir):
+        cfg = Config()
+        cfg.output_dir = out_dir
+        cfg.solver.checkpoint_period = 3
+        data = full_width_loader(cfg, steps + 4 + resumed_steps)
+        trainer = DefaultTrainer(cfg, data[:steps + 4])
+        saves = []
+        save = trainer.checkpointer.save
+
+        def timed_save(name, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(name, state)
+            saves.append((name, (time.perf_counter() - t0) * 1e3, os.path.getsize(path)))
+            return path
+
+        trainer.checkpointer.save = timed_save
+        rec = {}
+        first, last = step_probe_hooks(rec)
+        trainer.register_hooks([first] + trainer.build_hooks()
+                               + [PreciseBN(period=4, num_iters=2), last])
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_kernel_counts()                          # the main path starts
+        trainer.train(max_iter=steps)
+        k1, k3 = kernel_counts()                       # the main path ends
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        totals = [v for v, _ in trainer.storage.history("total_loss").values()]
+        timer = [v * 1e3 for v, _ in trainer.storage.history("time").values()]
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            lines = [json.loads(l) for l in f]
+        ckpt = trainer.checkpointer.get_checkpoint_file()
+
+        second = DefaultTrainer(cfg, data[steps + 4:])
+        second.checkpointer.save = timed_save
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = second.resume_or_load(resume=True)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        saved = second.checkpointer.load(ckpt, map_location="cpu")
+        same_as_saved = all(torch.equal(v.cpu(), saved["model"][k])
+                            for k, v in second.model.state_dict().items())
+        same_params = all(torch.equal(v, dict(trainer.model.named_parameters())[k])
+                          for k, v in second.model.named_parameters())
+        start_iter, count = second.start_iter, second.state.step
+        rec2 = {}
+        first2, last2 = step_probe_hooks(rec2)
+        second.register_hooks([first2] + second.build_hooks() + [last2])
+        reset_kernel_counts()                          # the resumed path starts
+        second.train(max_iter=steps + resumed_steps)
+        k1_r, k3_r = kernel_counts()                   # the resumed path ends
+        totals_r = [v for v, _ in second.storage.history("total_loss").values()]
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            lines_r = [json.loads(l) for l in f]
+
+        # where the loop's time goes: the bare step on one of the loop's own
+        # batches already on the card, and the upload of a batch alone
+        def synced_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        on_card = shard_batch(second.mesh, batch_from_numpy(data[0]))
+        bare_loop_data = [synced_ms(lambda: second.step_fn(on_card, second._generator))
+                          for _ in range(3)]
+        upload = [synced_ms(lambda: shard_batch(second.mesh, batch_from_numpy(d)))
+                  for d in data[:3]]
+        res.update(
+            steps=rec["steps"], resumed_steps=rec2["steps"], totals=totals + totals_r,
+            timer_ms=timer, peak_mib=peak, launches=dict(k1=k1, k3=k3),
+            resumed_launches=dict(k1=k1_r, k3=k3_r), saves=saves, load_ms=load_ms,
+            ckpt=ckpt, resumed=resumed, start_iter=start_iter, count=count,
+            same_as_saved=same_as_saved, same_params=same_params,
+            metrics_iters=[l["iteration"] for l in lines_r],
+            metrics_iters_first=[l["iteration"] for l in lines],
+            precise_bn_moved=dict(rec["hook_moved_stats"]),
+            bn_stats=len(bn_running_stats(trainer.model)),
+            bare_loop_data_ms=bare_loop_data, upload_ms=upload)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(main, backend="nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+               world_size=1, rank=0, args=(os.path.join(tmp, "out"),))
+    steps_ok = all(r["k1"] == 4 and r["k3"] == 4 for r in res["steps"] + res["resumed_steps"])
+    pbn_forwards = 2 * 2                     # after step 3 and at the end, 2 batches each
+    launches_ok = (res["launches"] == dict(k1=4 * steps + 4 * pbn_forwards, k3=4 * steps)
+                   and res["resumed_launches"] == dict(k1=4 * resumed_steps,
+                                                       k3=4 * resumed_steps))
+    moved = res["precise_bn_moved"]
+    pbn_ok = moved.get(3, 0) > 0 and all(v == 0 for it, v in moved.items() if it != 3)
+    timer_med = float(np.median(res["timer_ms"]))
+    ok = (steps_ok and launches_ok and pbn_ok and res["resumed"]
+          and all(np.isfinite(v) for v in res["totals"])
+          and len(res["totals"]) == steps + resumed_steps
+          and res["ckpt"] == f"model_{steps - 1:07d}"
+          and [n for n, _, _ in res["saves"]] == ["model_0000002", "model_0000005",
+                                                   "model_0000007"]
+          and res["start_iter"] == steps and res["count"] == steps
+          and res["same_as_saved"] and res["same_params"]
+          and res["metrics_iters_first"] == [steps - 1]
+          and res["metrics_iters"] == [steps - 1, steps + resumed_steps - 1])
+    save_ms = [ms for _, ms, _ in res["saves"]]
+    size_mb = res["saves"][0][2] / 1e6
+    log(f"[train_loop] DefaultTrainer, default Config() at full width, b=2 at "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, 1 NCCL rank via launch(file://): {steps} steps + "
+        f"PreciseBN(period 4, 2 batches) + checkpoints every 3; total losses "
+        + ", ".join(f"{v:.4f}" for v in res["totals"][:steps])
+        + f"; K1/K3 launches per step {[(r['k1'], r['k3']) for r in res['steps']]}, over the "
+        f"run {res['launches']['k1']} / {res['launches']['k3']} (PreciseBN's {pbn_forwards} "
+        f"forwards: 4 K1 each, no K3); PreciseBN moved the BN statistics by max "
+        f"{moved.get(3, 0):.3e} after step 3 ({res['bn_stats']} running tensors)")
+    log(f"[train_loop] step time from IterationTimer (median of steps 3-5, after its "
+        f"3 warm-up steps): {timer_med:.1f} ms ({', '.join(f'{v:.1f}' for v in res['timer_ms'])})"
+        + (f"; phase train's bare make_train_step in this run: median {bare_ms:.1f} ms "
+           f"-> ratio {timer_med / bare_ms:.3f}" if bare_ms else "")
+        + f"; run_step alone per step (ms): "
+        + ", ".join(f"{r['ms']:.1f}" for r in res["steps"])
+        + f"; peak memory {res['peak_mib']:.0f} MiB; the bare step on one of the loop's "
+        f"batches, already on the card: {', '.join(f'{v:.1f}' for v in res['bare_loop_data_ms'])}"
+        f" ms; a batch's upload alone: {', '.join(f'{v:.1f}' for v in res['upload_ms'])} ms")
+    log(f"[train_loop] checkpoints {[n for n, _, _ in res['saves']]}: {size_mb:.1f} MB each, "
+        f"save {', '.join(f'{v:.0f}' for v in save_ms)} ms, load (resume_or_load) "
+        f"{res['load_ms']:.0f} ms; resumed at start_iter {res['start_iter']} (update count "
+        f"{res['count']}), parameters equal the saved ones exactly: {res['same_as_saved']}, "
+        f"equal the first trainer's: {res['same_params']}; 2 resumed steps: total losses "
+        + ", ".join(f"{v:.4f}" for v in res["totals"][steps:])
+        + f", K1/K3 launches {res['resumed_launches']}; metrics.json iterations "
+        f"{res['metrics_iters']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train_loop failed: { {k: v for k, v in res.items()} }")
+    res.update(timer_median_ms=timer_med, bare_ms=bare_ms, size_mb=size_mb, save_ms=save_ms)
+    return res
+
+
+DDP_WORLD, DDP_STEPS = 2, 2
+
+
+def ddp_worker(rank: int, init: str, out_path: str):
+    """One rank of phase ``ddp``: gloo, the full-width config, b=1 of a
+    global b=2; after each step every parameter and BN buffer's checksum is
+    gathered on the CPU and compared across the ranks."""
+    from u2seg_torch.config import Config
+    from u2seg_torch.engine.hooks import HookBase
+    from u2seg_torch.engine.train_loop import DefaultTrainer
+    from u2seg_torch.engine.trainer import bn_running_stats
+    from u2seg_torch.parallel import comm
+    from u2seg_torch.parallel.launch import launch
+
+    def checksums(model):
+        # the bits of every f32 tensor summed as integers: one number per tensor
+        return torch.stack([t.detach().view(torch.int32).to(torch.int64).sum()
+                            for t in model.state_dict().values()]).cpu().tolist()
+
+    def main():
+        import tempfile
+
+        import torch.distributed.nn.functional as dist_fn
+
+        # time the step's coalesced all-reduce and SyncBN's moment all-reduces
+        coll = {"coalesced_ms": [], "syncbn_ms": 0.0, "syncbn_calls": 0}
+        coalesced, moments = comm.all_reduce_mean_, dist_fn.all_reduce
+
+        def timed_coalesced(tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coalesced(tensors)
+            torch.cuda.synchronize()
+            coll["coalesced_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        def timed_moments(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = moments(t, *a, **k)
+            torch.cuda.synchronize()
+            coll["syncbn_ms"] += (time.perf_counter() - t0) * 1e3
+            coll["syncbn_calls"] += 1
+            return out
+
+        comm.all_reduce_mean_, dist_fn.all_reduce = timed_coalesced, timed_moments
+        cfg = Config()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg.output_dir = tmp
+            trainer = DefaultTrainer(cfg, full_width_loader(cfg, DDP_STEPS, b=DDP_WORLD))
+            stats0 = [t.clone() for t in bn_running_stats(trainer.model)]
+            rec = {"identical_after_step": []}
+
+            class Identical(HookBase):
+                def after_step(self):
+                    sums = comm.all_gather(checksums(self.trainer.model))
+                    rec["identical_after_step"].append(all(s == sums[0] for s in sums))
+
+            first, _ = step_probe_hooks(rec)
+            trainer.register_hooks([first, Identical()])
+            identical_at_start = len(set(map(tuple, comm.all_gather(
+                checksums(trainer.model))))) == 1
+            reset_kernel_counts()                      # the main path starts
+            trainer.train(max_iter=DDP_STEPS)
+            k1, k3 = kernel_counts()                   # the main path ends
+            moved = max(float((a - b).abs().max())
+                        for a, b in zip(bn_running_stats(trainer.model), stats0))
+            totals = [v for v, _ in trainer.storage.history("total_loss").values()]
+            res = dict(rank=comm.get_rank(), world=comm.get_world_size(),
+                       device=str(trainer.device), steps=rec["steps"],
+                       identical_after_step=rec["identical_after_step"],
+                       identical_at_start=identical_at_start, totals=totals,
+                       bn_moved=moved, launches=dict(k1=k1, k3=k3),
+                       n_tensors=len(trainer.model.state_dict()), collectives=coll,
+                       peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+    launch(main, backend="gloo", init_method=init, world_size=DDP_WORLD, rank=rank)
+
+
+def phase_ddp(timeout: float = 600.0):
+    """Two gloo ranks on the one card (spawned processes, each with its own
+    CUDA context; NCCL refuses two ranks on one device), the full-width
+    config, b=1 per rank (global 2 at 800x1344), 2 steps of
+    ``DefaultTrainer``. The kernels are built before (phase build), so the
+    ranks load them."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rdv")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DDP_WORLD)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                   str(r), "--ddp-init", init, "--ddp-out", outs[r]],
+                                  cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(DDP_WORLD)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                log(f"[ddp] rank {r} exited {p.returncode}:\n{text[-6000:]}")
+                raise AssertionError(f"ddp rank {r} failed")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    ok = True
+    for r in res:
+        r_ok = (r["world"] == DDP_WORLD and r["identical_at_start"]
+                and r["identical_after_step"] == [True] * DDP_STEPS
+                and all(np.isfinite(v) for v in r["totals"]) and len(r["totals"]) == DDP_STEPS
+                and r["bn_moved"] > 0
+                and all(s["k1"] == 4 and s["k3"] == 4 for s in r["steps"])
+                and r["launches"] == dict(k1=4 * DDP_STEPS, k3=4 * DDP_STEPS))
+        ok = ok and r_ok
+        log(f"[ddp] rank {r['rank']}/{r['world']} on {r['device']} (gloo, b=1 of a global 2 "
+            f"at {TRAIN_HW[0]}x{TRAIN_HW[1]}): step ms "
+            + ", ".join(f"{s['ms']:.1f}" for s in r["steps"])
+            + f"; total losses {', '.join(f'{v:.4f}' for v in r['totals'])}; "
+            f"{r['n_tensors']} parameters and buffers bit-identical on both ranks after each "
+            f"step: {r['identical_after_step']}; SyncBN running statistics moved "
+            f"{r['bn_moved']:.3e}; K1/K3 launches per step "
+            f"{[(s['k1'], s['k3']) for s in r['steps']]}; peak memory {r['peak_mib']:.0f} MiB; "
+            f"coalesced all-reduce of gradients + losses + BN statistics (synced) "
+            f"{', '.join(f'{v:.1f}' for v in r['collectives']['coalesced_ms'])} ms per step; "
+            f"SyncBN's forward moment all-reduces (synced each; their backward "
+            f"all-reduces run inside autograd, untimed) "
+            f"{r['collectives']['syncbn_calls']} calls, {r['collectives']['syncbn_ms']:.1f} ms "
+            f"over the {DDP_STEPS} steps {'ok' if r_ok else 'FAIL'}")
+    ok = ok and res[0]["totals"] == res[1]["totals"]
+    log(f"[ddp] {DDP_WORLD} ranks, {DDP_STEPS} steps: {wall_s:.1f} s from spawn to exit; "
+        f"averaged losses equal on both ranks: {res[0]['totals'] == res[1]['totals']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ddp failed: {res}")
+    return dict(ranks=res, wall_s=wall_s)
+
+
+def phase_ddp_cpu():
+    """``entry.dryrun_multichip(2)``: one data-parallel step of the tiny
+    config over two gloo processes on the CPU."""
+    from u2seg_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2)
+    ok = "dryrun_multichip(2): ok" in out
+    log(f"[ddp_cpu] entry.dryrun_multichip(2) in {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dryrun_multichip(2) printed no result: {out}")
+    return dict(output=out.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -1612,12 +2055,18 @@ def phase_eval_cpu(dev):
 
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
-                  "train", "train_cpu"]
+                  "train", "train_cpu", "train_loop", "ddp", "ddp_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of %(default)s")
+    ap.add_argument("--ddp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-init", help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ddp_rank is not None:              # one rank of phase ddp
+        ddp_worker(args.ddp_rank, args.ddp_init, args.ddp_out)
+        return
     phases = args.phases.split(",")
     if not set(phases) <= set(all_phases):
         ap.error(f"unknown phase in {phases}")
@@ -1672,15 +2121,30 @@ def main():
         torch.cuda.empty_cache()
     if "train_cpu" in phases:
         report["train_cpu_parity"] = phase_train_cpu_parity(dev)
+    if "train_loop" in phases:
+        torch.cuda.empty_cache()
+        bare = (float(np.median([r["ms"] for r in report["train"]["steps"]]))
+                if "train" in report else None)
+        report["train_loop"] = phase_train_loop(dev, bare)
+        torch.cuda.empty_cache()
+    if "ddp" in phases:
+        report["ddp"] = phase_ddp()
+    if "ddp_cpu" in phases:
+        report["ddp_cpu"] = phase_ddp_cpu()
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:
         k1, k3, tr = report["kernel"], report["kernel_backward"], report["train"]
         k4, k5, ev = report["k4"], report["k5"], report["eval"]
         eval_launches = sum(m["k1_launches"] for m in ev["modes"].values())
-        fwd_launches = report["launches"] + eval_launches + tr["forward_launches"]
+        loops = [report["train_loop"]["launches"], report["train_loop"]["resumed_launches"],
+                 report["ddp"]["ranks"][0]["launches"]]        # rank 0's counts
+        fwd_launches = (report["launches"] + eval_launches + tr["forward_launches"]
+                        + sum(c["k1"] for c in loops))
+        bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops)
         if min(report["launches"], eval_launches, tr["forward_launches"],
-               tr["backward_launches"], k4["launches"], *k5["launches"].values()) < 1:
+               tr["backward_launches"], *(c[k] for c in loops for k in ("k1", "k3")),
+               k4["launches"], *k5["launches"].values()) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes
         report["record"] = {"kernels": [{
@@ -1700,7 +2164,7 @@ def main():
             "route": "cuda",
             "source": "u2seg_torch/csrc/roi_align_ml.cu",
             "replaces": "u2seg_tpu/ops/roi_align_pallas.py:1074",
-            "launches": tr["backward_launches"],
+            "launches": bwd_launches,
             "max_abs_err": max(k3[s]["max_abs_err_f32"] for s in (7, 14)),
             "ms": k3[7]["ms"],
             "plain_ms": k3[7]["plain_ms"],

@@ -3,8 +3,9 @@ multilevel ROIAlign (forward and backward span kernels: main shapes, a ragged
 channel width for each dtype pair, levels smaller than the window, what
 they reject), the single-level window ROIAlign (the same span design: main
 shapes, a ragged width, bins taller than its stage buffer, no ROIs, what it
-rejects), the shared memory each library reports, and the two window-read
-probe kernels.
+rejects), the shared memory each library reports, the two window-read
+probe kernels, and the backward kernel's two-run difference and its refusal
+under torch's deterministic mode.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -217,6 +218,39 @@ def test_backward_kernel_through_channels_last_views_and_no_rois(dev):
     empty = rap.multilevel_roi_align_train(
         [f.clone().requires_grad_() for f in feats], boxes[:0], bidx[:0], 7, STRIDES)
     assert empty.shape == (0, 7, 7, feats[0].shape[-1])
+
+
+def test_backward_kernel_repeats_to_rounding_and_refuses_deterministic_mode(dev):
+    """At the train step's shapes (b=2 at 800x1344, C=256, bf16 levels, f32
+    cotangent, R=1024 at s=7) two backward runs on the same inputs differ at
+    most by the rounding of f32 sums in another order (the atomics' order
+    changes); under torch's deterministic mode the backward raises, and with
+    ``warn_only`` it warns and runs."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats = [torch.randn(2, 800 // st, 1344 // st, 256, generator=gen, device=dev)
+             .to(torch.bfloat16).requires_grad_() for st in STRIDES]
+    rng = np.random.RandomState(5)
+    xy = rng.rand(1024, 2) * [1344, 800]
+    wh = np.exp(rng.uniform(np.log(8), np.log(800), (1024, 2)))
+    boxes = torch.tensor(np.concatenate([xy, xy + wh], 1), dtype=torch.float32, device=dev)
+    bidx = torch.tensor(rng.randint(0, 2, 1024), dtype=torch.int32, device=dev)
+    g = torch.randn(1024, 7, 7, 256, generator=gen, device=dev)
+    out = rap.multilevel_roi_align_train(feats, boxes, bidx, 7, STRIDES)
+    runs = [torch.autograd.grad(out, feats, g, retain_graph=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        scale = max(1.0, float(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * scale
+    before = torch.are_deterministic_algorithms_enabled()
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match="deterministic"):
+            torch.autograd.grad(out, feats, g, retain_graph=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match="deterministic"):
+            torch.autograd.grad(out, feats, g)
+    finally:
+        torch.use_deterministic_algorithms(before)
 
 
 # ---------------------------------------------------------------------------

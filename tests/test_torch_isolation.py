@@ -50,7 +50,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {"engine/predictor.py", "engine/device_render.py",
             "engine/panoptic_render.py", "data/transforms.py",
             "evaluation/rle.py", "ops/roi_align_single.py",
-            "dev/profile_window_read.py"} <= rel
+            "dev/profile_window_read.py", "engine/events.py", "engine/hooks.py",
+            "engine/checkpoint.py", "engine/train_loop.py", "engine/precise_bn.py",
+            "parallel/comm.py", "parallel/launch.py", "parallel/mesh.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -76,9 +78,11 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from u2seg_torch.config import Config
     from u2seg_torch.engine.predictor import DefaultPredictor
+    from u2seg_torch.engine.train_loop import DefaultTrainer
     from u2seg_torch.engine.trainer import create_train_state
     from u2seg_torch.entry import entry
     from u2seg_torch.models.build import build_model
+    from u2seg_torch.parallel.mesh import create_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -89,3 +93,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         create_train_state(Config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DefaultPredictor(Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DefaultTrainer(Config(), [])

@@ -128,3 +128,19 @@ def test_u2seg_yaml_loads_the_same(overrides):
     got = tconfig.to_dict(tconfig.load_config(YAML, overrides))
     assert got == ref
     assert got["model"]["roi_heads"]["name"] == "CascadeROIHeads"
+
+
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
+ZOO = sorted(os.path.relpath(os.path.join(d, f), CONFIG_DIR)
+             for d, _, files in os.walk(CONFIG_DIR) for f in files if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_every_zoo_yaml_loads_the_same(name):
+    path = os.path.join(CONFIG_DIR, name)
+    assert tconfig.to_dict(tconfig.load_config(path)) == jconfig.to_dict(
+        jconfig.load_config(path))
+
+
+def test_the_zoo_is_all_there():
+    assert len(ZOO) == 34 and "COCO-PanopticSegmentation/u2seg_R50_800.yaml" in ZOO

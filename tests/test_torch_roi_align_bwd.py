@@ -150,3 +150,30 @@ def test_gradient_reaches_channels_last_nchw_maps():
     for leaf, r in zip(leaves, ref):
         assert leaf.grad.shape == leaf.shape
         _close(leaf.grad.permute(0, 2, 3, 1), r.numpy(), "nchw leaf")
+
+
+@pytest.mark.parametrize("warn_only", [False, True])
+def test_deterministic_mode_refuses_the_atomic_backward(warn_only):
+    """The CUDA backward adds with atomics: under torch's deterministic mode
+    its check raises (warns with ``warn_only``); the CPU twin never reaches
+    it and runs under the flag."""
+    rng = np.random.RandomState(4)
+    feats = [torch.from_numpy(f).requires_grad_() for f in _levels(rng)]
+    boxes = torch.tensor([[4.0, 6.0, 60.0, 50.0], [10.0, 2.0, 150.0, 90.0]])
+    bidx = torch.tensor([0, 1], dtype=torch.int32)
+    rap.check_deterministic_backward()          # flag off: nothing happens
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
+    try:
+        if warn_only:
+            with pytest.warns(UserWarning, match="deterministic"):
+                rap.check_deterministic_backward()
+        else:
+            with pytest.raises(RuntimeError, match="roi_align_ml_backward_kernel"):
+                rap.check_deterministic_backward()
+        out = rap.multilevel_roi_align_train(feats, boxes, bidx, 7, STRIDES)
+        grads = torch.autograd.grad(out.sum(), feats)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert float(sum(g.abs().sum() for g in grads)) > 0

@@ -365,24 +365,26 @@ class DefaultPredictor:
     def run_batched(self, examples, batch_size: int = 4,
                     device_render: bool = False,
                     device_resize: bool = False):
-        """Batched, pipelined inference over ``(meta, image)`` pairs.
+        """Batched inference over ``(meta, image)`` pairs.
 
         Same-bucket images are grouped into device batches, and up to
         ``DEPTH`` batches are in flight: batch ``i+1`` is enqueued before
-        batch ``i``'s outputs are fetched, so the device's work overlaps the
-        host-side mask paste / panoptic render or decode.
+        batch ``i``'s outputs are fetched.
 
         Yields ``(meta, result_dict)`` in same-bucket-grouped order, with
         the per-image results of ``__call__``. Partial tail groups are
         padded by repeating the last image.
 
         The device-to-host fetch and the host-side decode of each in-flight
-        batch run on worker threads (the copy and numpy's hot loops release
-        the GIL), so the main thread's prepare -> upload -> enqueue loop does
-        not wait for them. All device work, the copies included, goes to
-        one CUDA stream in the order it is enqueued: a worker's copy waits
-        for its own batch and for whatever the main thread enqueued before
-        the worker asked for the copy.
+        batch run on worker threads. All device work, the copies included,
+        goes to one CUDA stream in the order it is enqueued: a worker's copy
+        waits for its own batch and for whatever the main thread enqueued
+        before the worker asked for the copy. In practice the stages do not
+        overlap: the main thread's prepare, the forward's ~2900 kernel
+        launches and the render's enqueue hold it for nearly all of a
+        batch's time, so the workers find nothing to run beside it, and the
+        pipelined throughput equals the serial sum of the stages (measured
+        on an H100 in every mode; ``PERF.md`` section 5).
         """
         from collections import defaultdict, deque
         from concurrent.futures import ThreadPoolExecutor

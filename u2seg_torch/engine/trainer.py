@@ -6,19 +6,26 @@ One step is: forward in training mode (the loss dict), backward, then the
 optimizer's update (clipping, weight decay, momentum, scheduled LR). BatchNorm
 running statistics move inside the forward. The JAX package runs this step as
 one SPMD program over a device mesh and averages gradients, losses and batch
-statistics over its ``data`` axis; the port's step is the single-device body,
-and data parallelism is a separate layer around it.
+statistics over its ``data`` axis. The port's step takes a ``Mesh`` (the
+default process group, ``parallel/mesh.py``): with more than one process it
+averages the gradients, the losses and the BatchNorm running statistics
+over the processes in one all-reduce after the backward, before the update,
+so every process applies the same update to the same parameters. With one
+process it takes no collective.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from u2seg_torch.config import Config
 from u2seg_torch.models.build import build_model
 from u2seg_torch.models.panoptic_fpn import PanopticFPN
+from u2seg_torch.ops.norms import BatchNorm2d
+from u2seg_torch.parallel import comm
 from u2seg_torch.solver import ScheduledSGD, build_optimizer
 from u2seg_torch.structures.instances import GtInstances
 
@@ -55,13 +62,33 @@ def create_train_state(cfg: Config, device=None, seed: int = 0) -> TrainState:
     return TrainState(model, build_optimizer(cfg.solver, model))
 
 
+def sampling_seed(seed: int, rank: int, step: int) -> int:
+    """The seed of one step's sampling generator on one rank: a hash of
+    (seed, rank, step), the counterpart of the JAX step's
+    ``fold_in(fold_in(rng, axis_index), step)``. Ranks draw different
+    samples, and a resumed run draws what an uninterrupted one would have."""
+    return int(np.random.SeedSequence([seed, rank, step]).generate_state(1, np.uint64)[0])
+
+
+def bn_running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The running mean and variance of every BatchNorm that is not frozen."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm2d) and not m.frozen
+            for t in (m.running_mean, m.running_var)]
+
+
 def make_train_step(
-    model: PanopticFPN, optimizer: ScheduledSGD,
+    model: PanopticFPN, optimizer: ScheduledSGD, mesh=None,
 ) -> Callable[[Batch, Optional[torch.Generator]], Dict[str, torch.Tensor]]:
     """-> ``step(batch, generator)``: one update of ``model`` by
     ``optimizer``; returns the losses and their sum ``total_loss`` (detached
     0-dim tensors on the model's device). ``generator`` feeds the fg/bg
-    sampling of the RPN and the ROI heads."""
+    sampling of the RPN and the ROI heads. With a ``mesh`` of more than one
+    process, ``batch`` is this process's share, and gradients, losses and
+    BatchNorm running statistics are averaged over the processes (one
+    all-reduce) before the update."""
+    world = mesh.world_size if mesh is not None else 1
+    params = [p for p in model.parameters() if p.requires_grad]
+    stats = bn_running_stats(model)
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None):
         model.train()
@@ -71,9 +98,16 @@ def make_train_step(
                        generator=generator)
         total = sum(losses.values())
         total.backward()
-        optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
+        if world > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            values = torch.stack([v.float() for v in metrics.values()])
+            comm.all_reduce_mean_([p.grad for p in params] + stats + [values])
+            metrics = dict(zip(metrics, values.unbind(0)))
+        optimizer.step()
         return metrics
 
     return step

@@ -12,9 +12,12 @@ Counterpart of ``u2seg_tpu/ops/norms.py``:
   bias`` in f32 cast to the activation dtype, and running statistics moved
   by ``new = 0.9 * old + 0.1 * batch`` with the BIASED batch variance
   (``torch.nn.BatchNorm2d`` stores the unbiased one and counts momentum the
-  other way round). Gradients flow through the batch moments. On one device
-  SyncBN is BN; the cross-device moment sync belongs to the data-parallel
-  trainer. Parameter and buffer names are detectron2's (``weight``,
+  other way round). Gradients flow through the batch moments. SyncBN
+  (``sync=True``) averages ``[E[x], E[x^2]]`` over the default process group
+  before the variance, with a differentiable all-reduce (its backward sums
+  the moments' gradients over the processes), as flax's BatchNorm with
+  ``axis_name="data"`` does with ``pmean``; with no group, or a group of
+  one, it is BN. Parameter and buffer names are detectron2's (``weight``,
   ``bias``, ``running_mean``, ``running_var``), so a d2 state dict loads as
   it is.
 - ``GroupNorm``: flax's formula: f32 statistics with the fast variance
@@ -29,17 +32,22 @@ from typing import Optional
 import torch
 from torch import nn
 
+from u2seg_torch.parallel import comm
+
 
 class BatchNorm2d(nn.Module):
     """BatchNorm on NCHW tensors (see the module doc). ``frozen`` is
-    FrozenBN: never batch statistics, no gradient to weight and bias."""
+    FrozenBN: never batch statistics, no gradient to weight and bias.
+    ``sync`` is SyncBN: batch moments averaged over the process group."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.9, frozen: bool = False):
+                 momentum: float = 0.9, frozen: bool = False,
+                 sync: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.frozen = frozen
+        self.sync = sync
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -54,6 +62,11 @@ class BatchNorm2d(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            world = comm.get_world_size() if self.sync else 1
+            if world > 1:
+                from torch.distributed.nn.functional import all_reduce
+
+                mean, mean2 = (all_reduce(torch.stack([mean, mean2])) / world).unbind(0)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
@@ -101,7 +114,8 @@ def get_norm(norm: Optional[str], features: int) -> Optional[nn.Module]:
         return None
     if norm in ("BN", "SyncBN", "naiveSyncBN", "FrozenBN"):
         return BatchNorm2d(features, eps=1e-5, momentum=0.9,
-                           frozen=norm == "FrozenBN")
+                           frozen=norm == "FrozenBN",
+                           sync=norm in ("SyncBN", "naiveSyncBN"))
     if norm == "GN":
         groups = 32 if features % 32 == 0 else math.gcd(32, features)
         return GroupNorm(max(groups, 1), features, eps=1e-5)

@@ -26,7 +26,10 @@ w.r.t. the levels only. On CUDA tensors it is a ``torch.autograd.Function``
 whose forward is the kernel above and whose backward is the second kernel
 of the same source (the port of the TPU kernel ``_ml_bwd_kernel``), counted
 in ``multilevel_roi_align_backward.launches``; on CPU tensors it is the
-twin under autograd, which is also the backward kernel's plain version.
+twin under autograd, which is also the backward kernel's plain version. The
+backward kernel adds with atomics and is not deterministic: under
+``torch.use_deterministic_algorithms(True)`` it raises
+(``check_deterministic_backward``).
 
 The kernels' design (the source's header has the detail). For one ROI the
 pooled output is ``einsum(Wy, Wx, window)`` with the dense per-axis weights of
@@ -52,6 +55,7 @@ import dataclasses
 import functools
 import itertools
 import math
+import warnings
 from typing import List, Sequence, Tuple
 
 import torch
@@ -523,6 +527,25 @@ def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
 multilevel_roi_align_backward.launches = 0
 
 
+def check_deterministic_backward() -> None:
+    """K3 adds each ROI's cotangent into the level gradients with atomics,
+    whose order changes from run to run, so its gradients may differ in the
+    last bits between two runs on the same inputs (the Pallas backward adds
+    ROI after ROI in grid order and repeats exactly). Under
+    ``torch.use_deterministic_algorithms(True)`` raise, as torch's own
+    non-deterministic CUDA ops do; with ``warn_only=True`` warn."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return
+    msg = ("multilevel_roi_align_train's CUDA backward (roi_align_ml_backward_kernel) "
+           "does not have a deterministic implementation, but you set "
+           "'torch.use_deterministic_algorithms(True)'. You can turn off determinism "
+           "just for this operation, or use the 'warn_only=True' option.")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg)
+    else:
+        raise RuntimeError(msg)
+
+
 class _TrainPooler(torch.autograd.Function):
     """Kernel forward on the EXTENDED level list (the caller appended the
     virtual level, so autograd carries its gradient back through the 2x
@@ -540,6 +563,7 @@ class _TrainPooler(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        check_deterministic_backward()
         roi_i, roi_f = ctx.saved_tensors
         s, r, shapes, dtype = ctx.meta
         grads = multilevel_roi_align_backward(

@@ -1,7 +1,8 @@
-"""A tiny config and a synthetic training batch (counterpart of
-``u2seg_tpu/config/testing.py``), small but complete: cascade heads, SyncBN,
-class-agnostic regression. Used by the CPU tests and by the card-vs-CPU
-check of the train step.
+"""A tiny config, a synthetic training batch and a loader of them
+(counterparts of ``u2seg_tpu/config/testing.py`` and of the ``fake_loader``
+of the JAX package's trainer test), small but complete: cascade heads,
+SyncBN, class-agnostic regression. Used by the CPU tests, the data-parallel
+dry run and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -52,3 +53,14 @@ def tiny_batch(rng: np.random.RandomState, b: int = 8, h: int = 64,
     return Batch(images=torch.from_numpy(images),
                  image_sizes=torch.from_numpy(sizes), gt=gt,
                  sem_seg=torch.from_numpy(sem))
+
+
+def fake_loader(rng: np.random.RandomState, b: int = 8, **shapes):
+    """Endless mapper dicts (numpy arrays) of ``tiny_batch(rng, b, **shapes)``
+    batches, as ``DefaultTrainer`` takes them."""
+    while True:
+        t = tiny_batch(rng, b=b, **shapes)
+        yield {"image": t.images.numpy(), "image_size": t.image_sizes.numpy(),
+               "gt_boxes": t.gt.boxes.numpy(), "gt_classes": t.gt.classes.numpy(),
+               "gt_valid": t.gt.valid.numpy(), "gt_masks": t.gt.masks.numpy(),
+               "sem_seg": t.sem_seg.numpy()}
