@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -100,7 +100,28 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    CPU), finite losses, SyncBN statistics moved, K1/K3 4 + 4 per step on
    each rank; step time per rank;
 14. ddp_cpu: ``entry.dryrun_multichip(2)``, one data-parallel step of the
-   tiny config over two gloo processes on the CPU.
+   tiny config over two gloo processes on the CPU;
+15. dataset_eval: the dataset evaluation path, ``run_panoptic_evaluation``
+   at full width (the default Config(), bf16, seeded weights calibrated as
+   in phase eval), on a synthetic COCO-format set that the phase writes into
+   a temporary directory as PNG files written by Pillow (16 scenes, 480x640,
+   427x640, 640x480 and 500x375, four of each, interleaved; an instances
+   JSON with 2-6 boxes per image over real COCO thing ids; panoptic GT with
+   stuff at cluster_num + supercategory; sem-seg GT in the contiguous-stuff
+   encoding), registered in the port's catalogs. (a) A predictor that
+   answers with the GT in cluster space must score bbox/AP = panoptic_seg/PQ
+   = 100 (to 1e-4) and sem_seg/mIoU > 99 in ``auto`` mode; (b) the model
+   through ``DefaultPredictor`` (device render and resize), as
+   ``hungarian_matching`` then ``eval``, and (c) as ``auto``: (b) and (c)
+   give equal metric dicts, their maps differ on at most 0.1% of pixels,
+   both mapping files exist, 4 K1 launches and one device-to-host copy per
+   batch, every metric finite or NaN exactly where the arithmetic gives NaN.
+   Prints images/s end to end, ms per image of image decode, GT decode,
+   predictor and each evaluator, peak memory;
+16. dataset_eval_cpu: the tiny config in f32 through
+   ``run_panoptic_evaluation`` on a 4-image set, on the card and on the CPU:
+   semantic maps equal on >= 99% of pixels and panoptic maps on >= 98% (as
+   in eval_cpu), summary metrics within 0.5 points.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -122,6 +143,7 @@ sys.path.insert(0, HERE)
 
 # device ms from a CUDA graph; the card's name and power limit
 from u2seg_torch.dev.sweep_forward_plan import graph_ms, smi_line  # noqa: E402
+from u2seg_torch.testing import scene  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -619,24 +641,6 @@ def k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides):
 # ---------------------------------------------------------------------------
 # Phase 4 / 5: the slice
 # ---------------------------------------------------------------------------
-
-def scene(rng, h: int, w: int) -> np.ndarray:
-    """A numpy-drawn RGB scene: smooth background + 10-25 solid ellipses."""
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    img = np.empty((h, w, 3), np.float32)
-    for ch in range(3):
-        a, b_, c_ = rng.rand(3)
-        img[..., ch] = 60 + 80 * (a * yy / h + b_ * xx / w + c_) / 3
-    for _ in range(rng.randint(10, 25)):
-        cy, cx = rng.rand() * h, rng.rand() * w
-        ay, ax = rng.randint(18, 90), rng.randint(18, 90)
-        th = rng.rand() * np.pi
-        dy, dx = yy - cy, xx - cx
-        u = (dx * np.cos(th) + dy * np.sin(th)) / ax
-        v = (-dx * np.sin(th) + dy * np.cos(th)) / ay
-        img[u * u + v * v <= 1.0] = rng.rand(3) * 255
-    return img.clip(0, 255)
-
 
 def calibrate(model, tau: float = CLS_WEIGHT_TAU):
     with torch.no_grad():
@@ -1811,6 +1815,45 @@ def count_launches(fn, iters: int = 1):
             sum(e.self_device_time_total for e in kernels) / 1e3 / iters)
 
 
+def calibrate_render(pred, imgs, bs: int, tag: str) -> float:
+    """Calibration, as for the class scores: seeded weights put no averaged
+    score above the default fusion threshold of 0.5, spread them unevenly
+    over the images, and draw semantic argmax maps far noisier than a
+    trained model's. (1) The fusion budget is the detection cap (100, default
+    50), so no image can exceed it and fall back, however its scores lie.
+    (2) A pass with the threshold out of reach and run budgets no map can
+    exceed gives the scores of these very batches; the threshold becomes
+    their median. (3) A second pass finds the high-water mark of runs per
+    batch; the fetched prefix covers it with a quarter to spare, so the
+    common case stays one copy per batch. Sets ``pred.cfg`` and returns the
+    threshold."""
+    from u2seg_torch.config import Config
+
+    cfg = pred.cfg
+    cfg.test.render_k_fuse = cfg.model.roi_heads.detections_per_image
+    cfg.model.panoptic.instance_conf_thresh = 2.0
+    cfg.test.render_max_runs, cfg.test.fetch_runs_per_image = 1 << 18, 1 << 19
+    first = dict(pred.run_batched(enumerate(imgs), bs, device_render=True))
+    scores = np.concatenate([r["instances"]["scores"] for r in first.values()])
+    thresh = float(np.median(scores))
+    cfg.model.panoptic.instance_conf_thresh = thresh
+    log(f"[{tag}] instance_conf_thresh set to {thresh:.4f} (median of {len(scores)} "
+        f"detection scores; default 0.5), render_k_fuse to {cfg.test.render_k_fuse} "
+        f"(default {Config().test.render_k_fuse}); eligible per image "
+        f"{[int((r['instances']['scores'] >= thresh).sum()) for r in first.values()]}")
+    pred.fetch_stats = {"fetches": 0, "bytes": 0}
+    list(pred.run_batched(enumerate(imgs), bs, device_render=True))
+    high = pred.fetch_stats["runs_max_batch"]
+    per_image = -(-int(high * 1.25 / bs) // 1024) * 1024
+    cfg.test.fetch_runs_per_image = per_image
+    cfg.test.render_max_runs = max(Config().test.render_max_runs, per_image)
+    log(f"[{tag}] most runs in one batch of {bs}: {high}; fetch_runs_per_image set to "
+        f"{per_image} (default {Config().test.fetch_runs_per_image}), render_max_runs "
+        f"to {cfg.test.render_max_runs} (default {Config().test.render_max_runs})")
+    pred.fetch_stats = {"fetches": 0, "bytes": 0}
+    return thresh
+
+
 def phase_eval(dev):
     from u2seg_torch.config import Config
     from u2seg_torch.engine.device_render import resize_image_device
@@ -1827,41 +1870,11 @@ def phase_eval(dev):
     bs = 4
     n_batches = 2          # 4 wide + 4 tall images: one batch per bucket
 
-    # Calibration, as for the class scores: seeded weights put no averaged
-    # score above the default fusion threshold of 0.5, spread them unevenly
-    # over the images, and draw semantic argmax maps far noisier than a
-    # trained model's. (1) The fusion budget is the detection cap (100, default
-    # 50), so no image can exceed it and fall back, however its scores lie.
-    # (2) A pass with the threshold out of reach and run budgets no map can
-    # exceed gives the scores of these very batches; the threshold becomes
-    # their median. (3) A second pass finds the high-water mark of runs per
-    # batch; the fetched prefix covers it with a quarter to spare, so the
-    # common case stays one copy per batch.
-    cfg.test.render_k_fuse = cfg.model.roi_heads.detections_per_image
-    cfg.model.panoptic.instance_conf_thresh = 2.0
-    cfg.test.render_max_runs, cfg.test.fetch_runs_per_image = 1 << 18, 1 << 19
-    first = dict(pred.run_batched(enumerate(imgs), bs, device_render=True))
-    scores = np.concatenate([r["instances"]["scores"] for r in first.values()])
-    thresh = float(np.median(scores))
-    cfg.model.panoptic.instance_conf_thresh = thresh
-    log(f"[eval] instance_conf_thresh set to {thresh:.4f} (median of {len(scores)} "
-        f"detection scores; default 0.5), render_k_fuse to {cfg.test.render_k_fuse} "
-        f"(default {Config().test.render_k_fuse}); eligible per image "
-        f"{[int((r['instances']['scores'] >= thresh).sum()) for r in first.values()]}")
+    thresh = calibrate_render(pred, imgs, bs, "eval")
     out = pred._fwd(*[pred._upload(a) for a in (
         pred._prepare(imgs[0])[0][None], np.array([[800, 1067]], np.int32))])
     if out.sem_seg_logits.dtype != torch.float32 or out.detections.mask_logits is None:
         raise AssertionError("forward(combine=False) lacks what the render needs")
-    pred.fetch_stats = {"fetches": 0, "bytes": 0}
-    list(pred.run_batched(enumerate(imgs), bs, device_render=True))
-    high = pred.fetch_stats["runs_max_batch"]
-    per_image = -(-int(high * 1.25 / bs) // 1024) * 1024
-    cfg.test.fetch_runs_per_image = per_image
-    cfg.test.render_max_runs = max(Config().test.render_max_runs, per_image)
-    log(f"[eval] most runs in one batch of {bs}: {high}; fetch_runs_per_image set to "
-        f"{per_image} (default {Config().test.fetch_runs_per_image}), render_max_runs "
-        f"to {cfg.test.render_max_runs} (default {Config().test.render_max_runs})")
-    pred.fetch_stats = {"fetches": 0, "bytes": 0}
     for mode in ("device_render", "device_resize"):
         list(pred.run_batched(enumerate(imgs), bs, **EVAL_MODES[mode]))
     torch.cuda.synchronize()
@@ -1993,14 +2006,12 @@ def phase_eval(dev):
                 resize_err=resize_err, things=n_things, stuff=n_stuff)
 
 
-def phase_eval_cpu(dev):
-    """The tiny config in f32 (TF32 off) through ``run_batched(device_render=True,
-    device_resize=True)`` on the card (kernels) and on the CPU (plain versions),
-    same seed, same images. Tolerances: boxes of matching records within 0.5 px and
-    classes equal on >= 90% of the CPU's records (proposal ties move a few, as in
-    the ``cpu`` phase); semantic maps equal on >= 99% of pixels, panoptic on >= 98%;
-    segment (kind, category) lists equal on >= 3 of the 4 images."""
-    from u2seg_torch.engine.predictor import DefaultPredictor
+TINY_EVAL_SIZES = ((40, 80), (80, 40)) * 2
+
+
+def tiny_eval_config():
+    """The tiny config in f32 with TF32 off, buckets and budgets for 40x80 /
+    80x40 images, the Pallas-semantics pooler (K1 on the card)."""
     from u2seg_torch.testing import tiny_spmd_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2014,8 +2025,21 @@ def phase_eval_cpu(dev):
     cfg.test.render_canvas = (80, 80)
     cfg.test.render_max_runs = 8192
     cfg.test.raw_buckets = ((80, 80),)
+    return cfg
+
+
+def phase_eval_cpu(dev):
+    """The tiny config in f32 (TF32 off) through ``run_batched(device_render=True,
+    device_resize=True)`` on the card (kernels) and on the CPU (plain versions),
+    same seed, same images. Tolerances: boxes of matching records within 0.5 px and
+    classes equal on >= 90% of the CPU's records (proposal ties move a few, as in
+    the ``cpu`` phase); semantic maps equal on >= 99% of pixels, panoptic on >= 98%;
+    segment (kind, category) lists equal on >= 3 of the 4 images."""
+    from u2seg_torch.engine.predictor import DefaultPredictor
+
+    cfg = tiny_eval_config()
     rng = np.random.RandomState(7)
-    imgs = [scene(rng, h, w).astype(np.uint8) for h, w in ((40, 80), (80, 40)) * 2]
+    imgs = [scene(rng, h, w).astype(np.uint8) for h, w in TINY_EVAL_SIZES]
     out = {}
     for name, device in (("cpu", "cpu"), ("gpu", dev)):
         pred = DefaultPredictor(cfg, device=device)
@@ -2053,9 +2077,443 @@ def phase_eval_cpu(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 15 / 16: the dataset evaluation path
+# ---------------------------------------------------------------------------
+
+DATASET_SIZES = [(480, 640), (427, 640), (640, 480), (500, 375)] * 4
+DATASET_NAME = "chip_smoke_synthetic_val"
+
+
+class serving:
+    """``run_panoptic_evaluation`` builds its predictor with the module's
+    ``DefaultPredictor``; inside this block that name gives ``pred``."""
+
+    def __init__(self, pred):
+        self.pred = pred
+
+    def __enter__(self):
+        from u2seg_torch.engine import predictor
+
+        self._saved = predictor.DefaultPredictor
+        predictor.DefaultPredictor = lambda cfg, device=None: self.pred
+        return self.pred
+
+    def __exit__(self, *exc):
+        from u2seg_torch.engine import predictor
+
+        predictor.DefaultPredictor = self._saved
+
+
+class Recording:
+    """A predictor's ``run_batched`` that keeps each pass's outputs by image
+    id and the seconds the consumer spent waiting on it (the predictor's own
+    work plus its waits for the threaded reads)."""
+
+    def __init__(self, pred):
+        self.pred, self.passes, self.seconds = pred, [], 0.0
+
+    def run_batched(self, examples, **kw):
+        outputs = {}
+        self.passes.append(outputs)
+        it = self.pred.run_batched(examples, **kw)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            self.seconds += time.perf_counter() - t0
+            if item is None:
+                return
+            outputs[item[0]["image_id"]] = item[1]
+            yield item
+
+
+class Timers:
+    """Wall seconds spent in the named functions and methods while active
+    (threads add up). Patched on the module or class, so the driver's
+    imports inside its call see the timed versions."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.calls = targets, {}, {}
+
+    def __enter__(self):
+        self._saved = []
+        for key, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            self.seconds[key], self.calls[key] = 0.0, 0
+
+            def timed(*a, _fn=fn, _key=key, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds[_key] += time.perf_counter() - t0
+                    self.calls[_key] += 1
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def dataset_timers():
+    from u2seg_torch.data import image_io
+    from u2seg_torch.evaluation.coco_evaluator import COCOEvaluator
+    from u2seg_torch.evaluation.panoptic_evaluator import COCOPanopticEvaluator
+    from u2seg_torch.evaluation.sem_seg_evaluator import SemSegEvaluator
+
+    return Timers({
+        "image_decode": (image_io, "read_image"),
+        "sem_gt_decode": (image_io, "read_sem_seg"),
+        "pan_gt_decode": (image_io, "read_panoptic_png"),
+        "miou_process": (SemSegEvaluator, "process"),
+        "miou_evaluate": (SemSegEvaluator, "evaluate"),
+        "cocoeval_process": (COCOEvaluator, "process"),
+        "cocoeval_evaluate": (COCOEvaluator, "evaluate"),
+        "pq_process": (COCOPanopticEvaluator, "process"),
+        "pq_evaluate": (COCOPanopticEvaluator, "evaluate"),
+    })
+
+
+def same_metrics(a, b, atol: float = 0.0) -> bool:
+    """Equal keys; values equal within ``atol``, NaN where the other is NaN."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_metrics(a[k], b[k], atol) for k in a))
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    if np.isnan(a) or np.isnan(b):
+        return bool(np.isnan(a) and np.isnan(b))
+    return abs(a - b) <= atol
+
+
+def metric_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over the numeric leaves both finite."""
+    out = 0.0
+    for k in a.keys() & b.keys():
+        if isinstance(a[k], dict):
+            out = max(out, metric_diff(a[k], b[k]))
+        elif not isinstance(a[k], str) and np.isfinite(a[k]) and np.isfinite(b[k]):
+            out = max(out, abs(float(a[k]) - float(b[k])))
+    return out
+
+
+def pixel_disagreement(p: dict, q: dict) -> float:
+    """Share of semantic + panoptic pixels that differ between two passes."""
+    n = bad = 0
+    for i in p:
+        for key in ("sem_seg", "panoptic"):
+            n += p[i][key].size
+            bad += int((p[i][key] != q[i][key]).sum())
+    return bad / max(n, 1)
+
+
+def min_filter_boundary(label: np.ndarray) -> np.ndarray:
+    """The boundary band by an independent route (a sliding-window minimum
+    over the zero-padded map), for the NaN check below."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    h, w = label.shape
+    k = max(1, int(round(0.02 * np.sqrt(h ** 2 + w ** 2))))
+    x = np.pad(label.astype(np.int64), k)
+    x = sliding_window_view(x, 2 * k + 1, axis=0).min(-1)
+    x = sliding_window_view(x, 2 * k + 1, axis=1).min(-1)
+    return label.astype(np.int64) - x
+
+
+def expected_nans(gt_maps, pred_maps, mapping, n: int = 16) -> set:
+    """The sem_seg keys whose value the evaluator's arithmetic makes NaN,
+    counted here from the maps: class i's IoU and ACC (and the min of IoU
+    and B-IoU, which is NaN only when IoU is) when no pixel has GT i and a
+    prediction below the extra bin n; its Boundary IoU when no pixel has
+    boundary value i on one side and below n on the other."""
+    from u2seg_torch.evaluation.sem_seg_evaluator import transfer_gt_to_supercategories
+
+    pos_gt = np.zeros(n + 1, np.int64)
+    b_pos = np.zeros(n + 1, np.int64)
+    for gt, pred in zip(gt_maps, pred_maps):
+        sup = transfer_gt_to_supercategories(gt.astype(np.int64))
+        g = np.where(sup == 255, n, np.minimum(sup, n))
+        remapped = np.full(pred.shape, n, np.int64)
+        for p in np.unique(pred):
+            m = mapping.get(int(p), -1)
+            remapped[pred == p] = m if m != -1 else n
+        pos_gt += np.bincount(g[remapped < n], minlength=n + 1)
+        bp = np.minimum(min_filter_boundary(remapped), n)
+        bg = np.minimum(min_filter_boundary(g), n)
+        b_pos += np.bincount(bg[bp < n], minlength=n + 1)
+        b_pos += np.bincount(bp[bg < n], minlength=n + 1)
+    out = set()
+    for i in range(n):
+        if pos_gt[i] == 0:
+            out |= {f"IoU-{i}", f"ACC-{i}", f"min(IoU, B-Iou)-{i}"}
+        if b_pos[i] == 0:
+            out.add(f"BoundaryIoU-{i}")
+    return out
+
+
+def check_finite(res: dict, nan_ok: set) -> list:
+    """Keys that are not finite where they should be, or finite where the
+    arithmetic gives NaN."""
+    bad = []
+    for task, vals in res.items():
+        for k, v in vals.items():
+            if isinstance(v, str):
+                continue
+            want_nan = task == "sem_seg" and k in nan_ok
+            if (np.isnan(v) != want_nan) or (not want_nan and not np.isfinite(v)):
+                bad.append(f"{task}/{k}={v}")
+    return bad
+
+
+def time_cocoeval(instances_json: str, outputs: dict, n_img: int) -> dict:
+    """COCOeval's own host time (bbox) on the model's boxes. The protocol's
+    vote keeps none of a seeded model's boxes, so its passes never reach
+    COCOeval; here every box takes part, its cluster folded onto a COCO
+    thing id, in supervised mode."""
+    from u2seg_torch.data.builtin_meta import thing_ids
+    from u2seg_torch.evaluation.coco_api import COCO
+    from u2seg_torch.evaluation.coco_evaluator import COCOEvaluator
+
+    things = thing_ids()
+    ev = COCOEvaluator(COCO(instances_json), mode="supervised", tasks=("bbox",))
+    n_det = 0
+    for image_id, out in outputs.items():
+        inst = dict(out["instances"])
+        inst["classes"] = np.array([things[int(c) % len(things)] for c in inst["classes"]])
+        n_det += len(inst["classes"])
+        ev.process([{"image_id": image_id}], [{"instances": inst}])
+    t0 = time.perf_counter()
+    res = ev.evaluate()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"[dataset-eval] COCOeval (bbox, numpy matcher) on the model's {n_det} boxes of "
+        f"{n_img} images, clusters folded onto COCO thing ids: {ms:.1f} ms on the host "
+        f"({ms / n_img:.2f} ms per image), AP {res['bbox']['AP']:.4f}")
+    return {"detections": n_det, "ms": ms, "ms_per_image": ms / n_img}
+
+
+def phase_dataset_eval(dev):
+    import tempfile
+
+    from u2seg_torch.config import Config
+    from u2seg_torch.data import image_io
+    from u2seg_torch.engine.predictor import DefaultPredictor, run_panoptic_evaluation
+    from u2seg_torch.evaluation.hungarian import load_mapping
+    from u2seg_torch.models.build import build_model
+    from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+    from u2seg_torch.testing import (
+        OraclePredictor, register_synthetic_coco, write_synthetic_coco,
+    )
+
+    cfg = Config()
+    n_img = len(DATASET_SIZES)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ds = write_synthetic_coco(os.path.join(root, "coco"), DATASET_SIZES,
+                                  np.random.RandomState(11), cfg.datasets.cluster_num)
+        register_synthetic_coco(DATASET_NAME, ds)
+        cfg.datasets.test = (DATASET_NAME,)
+        cfg.datasets.root = os.path.join(root, "datasets")   # names only, nothing read
+        files = sorted(os.listdir(ds.image_dir))
+        log(f"[dataset-eval] wrote {n_img} PNG scenes ({', '.join(f'{h}x{w}' for h, w in DATASET_SIZES[:4])}, "
+            f"four of each), instances, panoptic and sem-seg GT in "
+            f"{time.perf_counter() - t0:.2f} s")
+        decode = {}
+        for key, fn, sub in (("image", lambda p: image_io.read_image(p, "RGB"), ds.image_dir),
+                             ("sem_gt", image_io.read_sem_seg, ds.sem_seg_dir),
+                             ("pan_gt", image_io.read_panoptic_png, ds.panoptic_dir)):
+            t0 = time.perf_counter()
+            for f in files:
+                fn(os.path.join(sub, f))
+            decode[key] = (time.perf_counter() - t0) * 1e3 / n_img
+        log(f"[dataset-eval] PNG decode (Pillow) on one thread, ms per image: scene (RGB) "
+            f"{decode['image']:.1f}, sem-seg GT (gray) {decode['sem_gt']:.1f}, panoptic GT "
+            f"(RGB -> id) {decode['pan_gt']:.1f}")
+
+        # (a) the oracle: the ground truth in cluster space
+        with serving(OraclePredictor(cfg.datasets.cluster_num)):
+            oracle = run_panoptic_evaluation(
+                cfg, "auto", matching_dir=os.path.join(root, "oracle"))[DATASET_NAME]
+        ap, pq, miou = (oracle["bbox"]["AP"], oracle["panoptic_seg"]["PQ"],
+                        oracle["sem_seg"]["mIoU"])
+        log(f"[dataset-eval] oracle predictor, auto: bbox/AP {ap:.6f}, panoptic_seg/PQ "
+            f"{pq:.6f} (tol 100 +- 1e-4), sem_seg/mIoU {miou:.6f} (tol > 99)")
+        if abs(ap - 100) > 1e-4 or abs(pq - 100) > 1e-4 or not miou > 99:
+            raise AssertionError(f"the oracle does not score 100: {oracle}")
+
+        # the model at full width, calibrated on these very images
+        pred = DefaultPredictor(cfg, model=calibrate(build_model(cfg, device=dev, seed=0)))
+        imgs = [image_io.read_image(os.path.join(ds.image_dir, f), cfg.model.input_format)
+                for f in files]
+        bs = cfg.test.ims_per_batch
+        n_batches = 2 * -(-(n_img // 2) // bs)            # two buckets, half each
+        thresh = calibrate_render(pred, imgs, bs, "dataset-eval")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(pred.run_batched(enumerate(imgs), bs, device_render=cfg.test.device_render,
+                              device_resize=cfg.test.device_resize))
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+
+        runs, rows, launches_total = {}, {}, 0
+        for label, modes in (("two_pass", ("hungarian_matching", "eval")), ("auto", ("auto",))):
+            mdir = os.path.join(root, label)
+            rec = Recording(pred)
+            for mode in modes:
+                stats0 = dict(pred.fetch_stats)
+                rec.seconds = 0.0
+                torch.cuda.reset_peak_memory_stats(dev)
+                with dataset_timers() as tm, serving(rec):
+                    k1.launches = 0                       # the main path starts
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = run_panoptic_evaluation(cfg, mode,
+                                                  matching_dir=mdir)[DATASET_NAME]
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                    launches = k1.launches                # the main path ends
+                launches_total += launches
+                d = {k: pred.fetch_stats.get(k, 0) - stats0.get(k, 0)
+                     for k in ("fetches", "fallbacks")}
+                ms = {k: v * 1e3 / n_img for k, v in tm.seconds.items()}
+                row = dict(images_per_s=n_img / sec, seconds=sec, k1_launches=launches,
+                           batches=n_batches, copies=d["fetches"], fallbacks=d["fallbacks"],
+                           stream_ms=rec.seconds * 1e3 / n_img,
+                           predictor_alone_ms=alone_s * 1e3 / n_img,
+                           peak_mib=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+                           ms_per_image=ms, keys=sorted(res))
+                rows[f"{label}:{mode}"] = row
+                log(f"[dataset-eval] {label} pass {mode}: {n_img} images in {sec:.3f} s = "
+                    f"{row['images_per_s']:.2f} images/s end to end (reads, GT, evaluation "
+                    f"included); ms per image: image decode {ms['image_decode']:.1f}, GT decode "
+                    f"{ms['sem_gt_decode'] + ms['pan_gt_decode']:.1f} (sem "
+                    f"{ms['sem_gt_decode']:.1f}, panoptic {ms['pan_gt_decode']:.1f}; on "
+                    f"{cfg.dataloader.num_workers} reader threads), predictor stream "
+                    f"{row['stream_ms']:.1f} (waits for reads included; "
+                    f"{row['predictor_alone_ms']:.1f} on decoded images), evaluator process: "
+                    f"mIoU {ms['miou_process']:.1f}, COCO {ms['cocoeval_process']:.2f}, PQ "
+                    f"{ms['pq_process']:.2f}; evaluate(): mIoU {ms['miou_evaluate']:.1f}, "
+                    f"COCOeval {ms['cocoeval_evaluate']:.1f}, PQ {ms['pq_evaluate']:.1f}; K1 "
+                    f"launches {launches} over {n_batches} batches, device-to-host copies "
+                    f"{d['fetches']}, fallbacks {d['fallbacks']}; peak memory "
+                    f"{row['peak_mib']:.0f} MiB; metrics {sorted(res)}")
+                if launches != 4 * n_batches:
+                    raise AssertionError(f"{mode}: expected {4 * n_batches} K1 launches, "
+                                         f"got {launches}")
+                if d["fetches"] != n_batches or d["fallbacks"]:
+                    raise AssertionError(f"{mode}: {d['fetches']} copies for {n_batches} "
+                                         f"batches, {d['fallbacks']} fallbacks")
+                if sorted(rec.passes[-1]) != sorted(ds.image_ids):
+                    raise AssertionError(f"{mode}: outputs missing")
+            for f in ("instance_mapping.json", "semantic_mapping.json"):
+                if not os.path.exists(os.path.join(mdir, f)):
+                    raise AssertionError(f"{label}: {f} was not written")
+            runs[label] = (res, rec.passes)
+
+        two, auto = runs["two_pass"], runs["auto"]
+        differ = max(pixel_disagreement(two[1][0], auto[1][0]),
+                     pixel_disagreement(two[1][1], auto[1][0]))
+        same = same_metrics(two[0], auto[0])
+        log(f"[dataset-eval] two-pass (hungarian_matching, then eval) vs auto: metric dicts "
+            f"{'equal' if same else 'DIFFER'} (largest difference {metric_diff(two[0], auto[0]):.3g}); "
+            f"the three forwards' maps differ on {differ:.6f} of pixels (tol 0.001)")
+        if differ > 1e-3:
+            raise AssertionError("the forwards of the passes disagree")
+        if not same:
+            raise AssertionError(f"two-pass and auto disagree: {two[0]} vs {auto[0]}")
+        gt = {i: image_io.read_sem_seg(os.path.join(ds.sem_seg_dir, f"{i:012d}.png"))
+              for i in ds.image_ids}
+        mapping = load_mapping(os.path.join(root, "auto", "semantic_mapping.json"))
+        nan_ok = expected_nans([gt[i] for i in ds.image_ids],
+                               [auto[1][0][i]["sem_seg"] for i in ds.image_ids], mapping)
+        bad = check_finite(auto[0], nan_ok)
+        flat = {f"{t}/{k}": v for t, vals in auto[0].items() for k, v in vals.items()
+                if "-" not in k}
+        log(f"[dataset-eval] model metrics (seeded weights, no meaning beyond the path): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in flat.items())
+            + f"; NaN where expected: {len(nan_ok)} per-class keys; not so: {bad}")
+        if bad:
+            raise AssertionError(f"metrics not finite where they should be: {bad}")
+        cocoeval = time_cocoeval(ds.instances_json, auto[1][0], n_img)
+    from u2seg_torch.data.catalog import DatasetCatalog
+    DatasetCatalog.remove(DATASET_NAME)
+    return dict(rows=rows, decode_ms=decode, oracle=dict(ap=ap, pq=pq, miou=miou),
+                thresh=thresh, pixels_differ=differ, launches=launches_total,
+                metrics=flat, nan_keys=sorted(nan_ok), cocoeval=cocoeval)
+
+
+def phase_dataset_eval_cpu(dev):
+    """``run_panoptic_evaluation`` of the tiny config in f32 (TF32 off) on a
+    4-image synthetic set, on the card (kernels) and on the CPU (plain
+    versions), the same seeded weights, ``device_render=True,
+    device_resize=True``. Tolerances: on every image the semantic maps equal
+    on >= 99% of pixels and the panoptic maps on >= 98%, as in phase
+    ``eval_cpu``; the summary metrics (keys without a class index) within
+    0.5 points (measured: maps differ on 0.00004 of pixels, metrics by 0).
+    The CPU's maps must be far enough from zero that zeroed maps from the
+    card would fail the pixel gate; the per-class keys are printed by their
+    largest difference only."""
+    import tempfile
+
+    from u2seg_torch.engine.predictor import DefaultPredictor, run_panoptic_evaluation
+    from u2seg_torch.testing import register_synthetic_coco, write_synthetic_coco
+
+    cfg = tiny_eval_config()
+    cfg.datasets.cluster_num = 800        # stuff ids stay clear of COCO thing ids
+    out, passes = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        ds = write_synthetic_coco(os.path.join(root, "coco"), TINY_EVAL_SIZES,
+                                  np.random.RandomState(12), cfg.datasets.cluster_num)
+        register_synthetic_coco(DATASET_NAME, ds)
+        cfg.datasets.test = (DATASET_NAME,)
+        cfg.datasets.root = os.path.join(root, "datasets")
+        cfg.test.ims_per_batch = 2
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            with serving(Recording(DefaultPredictor(cfg, device=device))) as rec:
+                out[name] = run_panoptic_evaluation(
+                    cfg, "auto", device=device,
+                    matching_dir=os.path.join(root, name))[DATASET_NAME]
+            passes[name] = rec.passes[0]
+            if rec.pred.fetch_stats.get("fallbacks", 0):
+                raise AssertionError(f"{name}: an image took the fallback")
+    from u2seg_torch.data.catalog import DatasetCatalog
+    DatasetCatalog.remove(DATASET_NAME)
+    cpu, gpu = passes["cpu"], passes["gpu"]
+    differ = pixel_disagreement(cpu, gpu)
+    agree = [map_agreement(cpu[i], gpu[i]) for i in cpu]
+    sem, pan = min(a[0] for a in agree), min(a[1] for a in agree)
+    zeroed = [map_agreement(cpu[i], {k: np.zeros_like(cpu[i][k])
+                                     for k in ("sem_seg", "panoptic")}) for i in cpu]
+    zsem, zpan = min(a[0] for a in zeroed), min(a[1] for a in zeroed)
+    summary = {t: {k: v for k, v in vals.items() if "-" not in k}
+               for t, vals in out["cpu"].items()}
+    summary_gpu = {t: {k: v for k, v in vals.items() if "-" not in k}
+                   for t, vals in out["gpu"].items()}
+    ok = same_metrics(summary, summary_gpu, atol=0.5)
+    res = dict(pixels_differ=differ, sem=sem, pan=pan, zeroed_sem=zsem, zeroed_pan=zpan,
+               summary_diff=metric_diff(summary, summary_gpu),
+               all_diff=metric_diff(out["cpu"], out["gpu"]), keys=sorted(out["cpu"]))
+    log(f"[dataset-eval-cpu] tiny config f32, run_panoptic_evaluation card vs CPU: "
+        f"semantic maps equal on >= {sem:.5f} of pixels (tol 0.99), panoptic >= {pan:.5f} "
+        f"(tol 0.98), {differ:.5f} of all pixels differ; zeroed maps would agree on "
+        f">= {zsem:.5f} / {zpan:.5f}; summary metrics {'agree' if ok else 'DISAGREE'} "
+        f"(largest difference {res['summary_diff']:.4g}, tol 0.5 points; NaN where the "
+        f"other is NaN), per-class keys differ by <= {res['all_diff']:.4g}; CPU: " + ", ".join(
+            f"{t}/{k} {v:.3f}" for t, vals in summary.items() for k, v in vals.items()))
+    if zsem >= 0.99 and zpan >= 0.98:
+        raise AssertionError("the CPU's maps are nearly all zero: the pixel gate is blind")
+    if not (sem >= 0.99 and pan >= 0.98):
+        raise AssertionError(f"card and CPU maps disagree: {res}")
+    if not ok:
+        raise AssertionError(f"card and CPU evaluations disagree: {out}")
+    return res
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
-                  "train", "train_cpu", "train_loop", "ddp", "ddp_cpu"]
+                  "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
+                  "ddp", "ddp_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -2115,6 +2573,12 @@ def main():
         torch.cuda.empty_cache()
     if "eval_cpu" in phases:
         report["eval_cpu"] = phase_eval_cpu(dev)
+    if "dataset_eval" in phases:
+        torch.cuda.empty_cache()
+        report["dataset_eval"] = phase_dataset_eval(dev)
+        torch.cuda.empty_cache()
+    if "dataset_eval_cpu" in phases:
+        report["dataset_eval_cpu"] = phase_dataset_eval_cpu(dev)
     if "train" in phases:
         torch.cuda.empty_cache()
         report["train"] = phase_train(dev)
@@ -2139,10 +2603,11 @@ def main():
         eval_launches = sum(m["k1_launches"] for m in ev["modes"].values())
         loops = [report["train_loop"]["launches"], report["train_loop"]["resumed_launches"],
                  report["ddp"]["ranks"][0]["launches"]]        # rank 0's counts
-        fwd_launches = (report["launches"] + eval_launches + tr["forward_launches"]
-                        + sum(c["k1"] for c in loops))
+        dataset_launches = report["dataset_eval"]["launches"]
+        fwd_launches = (report["launches"] + eval_launches + dataset_launches
+                        + tr["forward_launches"] + sum(c["k1"] for c in loops))
         bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops)
-        if min(report["launches"], eval_launches, tr["forward_launches"],
+        if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
                tr["backward_launches"], *(c[k] for c in loops for k in ("k1", "k3")),
                k4["launches"], *k5["launches"].values()) < 1:
             raise AssertionError("a kernel of a main path was never launched")

@@ -1,6 +1,7 @@
 """u2seg_torch stands alone: it imports neither JAX, the JAX package nor
-OpenCV (the machine with the card has none of them), and its entry points
-refuse to fall back to the CPU silently.
+OpenCV (the machine with the card has none of them), Pillow only inside the
+calls of ``data/image_io.py``, and its entry points refuse to fall back to
+the CPU silently.
 
 "Names" below means imports: every ``import`` / ``from ... import`` and every
 ``importlib.import_module`` / ``__import__`` call with a literal module name,
@@ -52,10 +53,54 @@ def test_no_source_imports_jax_or_the_jax_package():
             "evaluation/rle.py", "ops/roi_align_single.py",
             "dev/profile_window_read.py", "engine/events.py", "engine/hooks.py",
             "engine/checkpoint.py", "engine/train_loop.py", "engine/precise_bn.py",
-            "parallel/comm.py", "parallel/launch.py", "parallel/mesh.py"} <= rel
+            "parallel/comm.py", "parallel/launch.py", "parallel/mesh.py",
+            "data/catalog.py", "data/builtin_meta.py", "data/image_io.py",
+            "data/coco.py", "data/builtin.py", "data/loader.py",
+            "evaluation/coco_api.py", "evaluation/evaluator.py",
+            "evaluation/hungarian.py", "evaluation/coco_eval_core.py",
+            "evaluation/coco_evaluator.py", "evaluation/sem_seg_evaluator.py",
+            "evaluation/panoptic_eval_core.py", "evaluation/panoptic_evaluator.py",
+            "evaluation/testing.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def _module_level_imports(path):
+    """Imports that run when the module is imported: those outside any
+    function or class body."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    stack = [(n, False) for n in tree.body]
+    while stack:
+        node, nested = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import) and not nested:
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not nested:
+            yield node.module
+        stack += [(c, nested or isinstance(node, ast.ClassDef))
+                  for c in ast.iter_child_nodes(node)]
+
+
+def test_pil_is_imported_only_inside_the_jpeg_path():
+    """Every image file is read and written through ``data/image_io.py``,
+    which imports PIL inside one helper that its calls share, so importing
+    the port needs no Pillow."""
+    files = _port_sources()
+    at_import = [(os.path.relpath(p, ROOT), n) for p in files
+                 for n in _module_level_imports(p) if n.split(".")[0] == "PIL"]
+    assert not at_import, at_import
+    anywhere = sorted({os.path.relpath(p, ROOT) for p in files
+                       if any(n.split(".")[0] == "PIL" for n in _imported_names(p))})
+    assert anywhere == ["u2seg_torch/data/image_io.py"]
+    with open(os.path.join(ROOT, "u2seg_torch", "data", "image_io.py")) as f:
+        tree = ast.parse(f.read())
+    owners = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+              and any(isinstance(n, ast.ImportFrom) and n.module == "PIL"
+                      for n in ast.walk(fn))]
+    assert owners == ["_pil"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,7 +111,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in %r]\n"
         "print('BAD', bad)\n"
-        "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)
+        "sys.exit(1 if bad else 0)\n" % (FORBIDDEN + ("PIL",),)
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -77,7 +122,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from u2seg_torch.config import Config
-    from u2seg_torch.engine.predictor import DefaultPredictor
+    from u2seg_torch.engine.predictor import DefaultPredictor, run_panoptic_evaluation
     from u2seg_torch.engine.train_loop import DefaultTrainer
     from u2seg_torch.engine.trainer import create_train_state
     from u2seg_torch.entry import entry
@@ -97,3 +142,5 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         create_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DefaultTrainer(Config(), [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_panoptic_evaluation(Config())

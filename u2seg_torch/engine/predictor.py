@@ -1,16 +1,21 @@
-"""Inference APIs: the single-image predictor and its batched, pipelined
-form (counterpart of ``u2seg_tpu/engine/predictor.py``).
+"""Inference APIs: the single-image predictor, its batched, pipelined
+form, and the dataset evaluation driver (counterpart of
+``u2seg_tpu/engine/predictor.py``).
 
 ``DefaultPredictor`` takes raw images, resizes the shortest edge to the test
 size, pads to a bucket, runs the model and returns original-resolution
 outputs. ``detections_to_records`` turns fixed-capacity ``Detections`` into
 original-resolution COCO-style records on the host.
+``run_panoptic_evaluation`` scores registered datasets with U2Seg's
+cluster-matching protocol (AP, mIoU, PQ).
 
-The predictor runs on ``cuda`` unless the caller names a device (or hands in
-a model that already lives on one); with no GPU and no device it raises.
+The predictor and the driver run on ``cuda`` unless the caller names a
+device (or hands in a model that already lives on one); with no GPU and no
+device they raise.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -457,3 +462,146 @@ class DefaultPredictor:
             # mid-stream doesn't leave detached futures whose exceptions
             # would be silently dropped
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+def build_u2seg_evaluators(cfg: Config, meta, eval_mode: str,
+                           matching_dir: str = "./hungarian_matching"):
+    """Evaluator stack of the U2Seg protocol: semantic mIoU, instance AP and
+    panoptic PQ, each wired to the cluster-matching mode. The order matters:
+    ``DatasetEvaluators.evaluate`` runs them in list order, and in ``auto``
+    mode the panoptic evaluator reads the mappings the first two wrote."""
+    from u2seg_torch.data.builtin_meta import (
+        NUM_SUPERCATEGORIES, thing_dataset_id_to_contiguous_id,
+    )
+    from u2seg_torch.evaluation.coco_api import COCO
+    from u2seg_torch.evaluation.coco_evaluator import COCOEvaluator
+    from u2seg_torch.evaluation.evaluator import DatasetEvaluators
+    from u2seg_torch.evaluation.panoptic_evaluator import COCOPanopticEvaluator
+    from u2seg_torch.evaluation.sem_seg_evaluator import SemSegEvaluator
+
+    cluster_num = cfg.datasets.cluster_num
+    coco_gt = COCO(meta.json_file)
+    evals = [
+        SemSegEvaluator(
+            mode=eval_mode,
+            num_pred_classes=cfg.model.sem_seg_head.num_classes,
+            matching_dir=matching_dir,
+        ),
+        COCOEvaluator(
+            coco_gt, mode=eval_mode, num_clusters=cluster_num,
+            matching_dir=matching_dir,
+            tasks=("bbox",),   # segm skipped in the protocol (ref :353-354)
+        ),
+    ]
+    pan_json = meta.get("panoptic_json")
+    if pan_json and os.path.exists(pan_json):
+        thing_c2d = {
+            v: k for k, v in thing_dataset_id_to_contiguous_id().items()
+        }
+        categories = {}
+        for did in thing_c2d.values():
+            categories[did] = {"id": did, "isthing": 1}
+        for s in range(1, NUM_SUPERCATEGORIES + 1):
+            categories[cluster_num + s] = {
+                "id": cluster_num + s, "isthing": 0,
+            }
+        # supervised=...: the JAX package passes the mode alone, and its
+        # panoptic evaluator then looks for cluster mappings that a
+        # supervised run never writes (FileNotFoundError)
+        evals.append(COCOPanopticEvaluator(
+            categories, thing_c2d, cluster_num=cluster_num,
+            matching_dir=matching_dir,
+            mode="eval" if eval_mode in ("eval", "auto") else eval_mode,
+            supervised=eval_mode == "supervised",
+        ))
+    return DatasetEvaluators(evals), pan_json
+
+
+def run_panoptic_evaluation(cfg: Config, eval_mode: str = "auto",
+                            device: Optional[Union[str, torch.device]] = None,
+                            matching_dir: str = "./hungarian_matching") -> dict:
+    """Dataset evaluation driver: registry -> sampler -> threaded image and
+    GT reads -> ``DefaultPredictor.run_batched`` -> {SemSeg, COCO, Panoptic}
+    evaluators, per dataset of ``cfg.datasets.test`` (the eval-only path of
+    tools/train_net.py).
+
+    ``eval_mode`` is "hungarian_matching" (pass 1: writes the mappings into
+    ``matching_dir``), "eval" (pass 2: reads them), "auto" (both in one run)
+    or "supervised". Each dataset gets its own ``DefaultPredictor(cfg,
+    device=device)``.
+
+    Each process of a ``torch.distributed`` group takes its
+    ``InferenceSampler`` shard and scores it alone: nothing gathers the
+    shards, as in the JAX package (detectron2 gathers them)."""
+    import json as jsonlib
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from u2seg_torch.data.builtin import register_all_coco
+    from u2seg_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from u2seg_torch.data.image_io import read_image, read_panoptic_png, read_sem_seg
+    from u2seg_torch.data.loader import InferenceSampler
+    from u2seg_torch.models.build import resolve_device
+    from u2seg_torch.parallel import comm
+
+    device = resolve_device(device)        # raises with no GPU and no device
+    register_all_coco(cfg.datasets.root, cluster_num=cfg.datasets.cluster_num)
+    results = {}
+    for dataset_name in cfg.datasets.test:
+        dicts = DatasetCatalog.get(dataset_name)
+        meta = MetadataCatalog.get(dataset_name)
+        evaluator, pan_json = build_u2seg_evaluators(
+            cfg, meta, eval_mode, matching_dir)
+        pan_gt_by_image = {}
+        if pan_json and os.path.exists(pan_json):
+            with open(pan_json) as f:
+                pj = jsonlib.load(f)
+            pan_gt_by_image = {
+                a["image_id"]: a for a in pj.get("annotations", [])
+            }
+        pred = DefaultPredictor(cfg, device=device)
+        evaluator.reset()
+        sampler = InferenceSampler(
+            len(dicts), comm.get_rank(), comm.get_world_size())
+
+        def load_example(idx):
+            """Image + per-image GT reads (threaded: IO releases the GIL)."""
+            d = dicts[idx]
+            img = read_image(d["file_name"], cfg.model.input_format)
+            inp = {"image_id": d["image_id"]}
+            if "sem_seg_file_name" in d:
+                inp["sem_seg_gt"] = read_sem_seg(d["sem_seg_file_name"]).astype(np.int64)
+            gt_ann = pan_gt_by_image.get(d["image_id"])
+            if gt_ann is not None:
+                pan_root = meta.get("panoptic_root", "")
+                inp["pan_gt"] = read_panoptic_png(
+                    os.path.join(pan_root, gt_ann["file_name"]))
+                inp["gt_segments"] = gt_ann["segments_info"]
+            return inp, img
+
+        def examples():
+            workers = max(cfg.dataloader.num_workers, 1)
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                futs = deque()
+                for idx in sampler:
+                    futs.append(pool.submit(load_example, idx))
+                    if len(futs) >= 2 * workers:
+                        yield futs.popleft().result()
+                while futs:
+                    yield futs.popleft().result()
+
+        stream = pred.run_batched(
+            examples(), batch_size=cfg.test.ims_per_batch,
+            device_render=cfg.test.device_render,
+            device_resize=cfg.test.device_resize)
+        for inp, out in stream:
+            out_rec = {
+                "instances": out["instances"],
+                "sem_seg": out.get("sem_seg"),
+            }
+            if "panoptic" in out:
+                out_rec["panoptic"] = out["panoptic"]
+                out_rec["segments"] = out["segments"]
+            evaluator.process([inp], [out_rec])
+        results[dataset_name] = evaluator.evaluate()
+    return results
