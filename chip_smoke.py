@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -121,7 +121,30 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
 16. dataset_eval_cpu: the tiny config in f32 through
    ``run_panoptic_evaluation`` on a 4-image set, on the card and on the CPU:
    semantic maps equal on >= 99% of pixels and panoptic maps on >= 98% (as
-   in eval_cpu), summary metrics within 0.5 points.
+   in eval_cpu), summary metrics within 0.5 points;
+17. train_net: training from files through ``u2seg_torch.tools.train_net.main``
+   at full width (u2seg_R50_800.yaml, SyncBN on one rank, 3-stage cascade
+   over 800 clusters, masks, 28 sem-seg classes, bf16; ims_per_batch 2, 4
+   loader threads) on 32 files of ``testing.write_synthetic_u2seg_train``
+   (480x640, 427x640, 640x480, 500x375; JPEG scenes, CutLER RLE and polygon
+   instances, stuff maps), starting from ``model.weights`` (a file of the
+   seeded model): 8 iterations, ``--resume`` to 10, then ``--eval-only
+   --eval-mode auto`` on a 16-image synthetic val set with the last
+   checkpoint as ``model.weights`` (test score threshold 0: an untrained
+   model scores no class above 0.05; render budgets calibrated on the
+   checkpoint first). Prints the loader alone (images/s at 0 and 4
+   threads), the mapper's ms per image by stage on one thread, the step
+   time from IterationTimer against phase train's bare step, the trainer's
+   wait for data per step (``next()`` timed from outside the trainer), K1/K3
+   launches per step, peak memory and the eval-only images/s. Fails unless
+   the losses are finite, every step launches K1 x4 and K3 x4, the resumed
+   run starts at iteration 8, the eval-only predictor holds the checkpoint's
+   tensors (and not the seeded ones), two loaders of one seed give identical
+   first 4 batches, and every mask patch lies in [0, 1] and every box inside
+   its image;
+18. train_net_cpu: ``train_net.main`` of the tiny config in f32 (TF32 off),
+   2 steps from the same files on the card and with ``--device cpu``: equal
+   loader batches, losses within rtol 1e-3 (phase train_cpu's tolerance).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -2510,10 +2533,402 @@ def phase_dataset_eval_cpu(dev):
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# training from files: train_net, --resume, --eval-only
+# ---------------------------------------------------------------------------
+
+TRAIN_NET_SIZES = EVAL_SIZES * 4          # 32 scenes, the eval phase's four sizes
+TRAIN_NET_STEPS, TRAIN_NET_RESUMED = 8, 10
+TRAIN_NET_VAL = "chip_smoke_train_net_val"
+U2SEG_YAML = os.path.join(HERE, "configs", "COCO-PanopticSegmentation", "u2seg_R50_800.yaml")
+
+
+class TimedLoader:
+    """The train loader as ``DefaultTrainer`` draws from it: the wall time of
+    each ``next()`` (the step's wait for data) and the kernel counts at each
+    call, and every batch's mask patches and boxes checked on the way."""
+
+    def __init__(self, loader, keep: bool = False):
+        self.loader, self.keep = loader, keep
+        self.waits, self.counts, self.batches, self.bad = [], [], [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.counts.append(kernel_counts())
+        t0 = time.perf_counter()
+        b = next(self.loader)
+        self.waits.append((time.perf_counter() - t0) * 1e3)
+        valid, masks, boxes = b["gt_valid"], b["gt_masks"], b["gt_boxes"]
+        hw = b["image_size"][:, None, :].astype(np.float32)
+        inside = ((boxes[..., :2] >= 0) & (boxes[..., 2:] <= hw[..., ::-1])
+                  & (boxes[..., 2:] > boxes[..., :2])).all(-1)
+        if masks.min() < 0 or masks.max() > 1 or not inside[valid].all():
+            self.bad.append(len(self.waits) - 1)
+        if self.keep:
+            self.batches.append(b)
+        return b
+
+    def close(self):
+        getattr(self.loader, "close", lambda: None)()
+
+
+class loader_probe:
+    """Inside this block ``train_net.build_train_loader`` hands out its
+    loader wrapped in a ``TimedLoader`` (``self.loaders``, in order)."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.loaders = keep, []
+
+    def __enter__(self):
+        from u2seg_torch.tools import train_net
+
+        self._saved = train_net.build_train_loader
+
+        def build(cfg):
+            self.loaders.append(TimedLoader(self._saved(cfg), self.keep))
+            return self.loaders[-1]
+
+        train_net.build_train_loader = build
+        return self
+
+    def __exit__(self, *exc):
+        from u2seg_torch.tools import train_net
+
+        train_net.build_train_loader = self._saved
+
+
+def forget_dataset(name: str) -> None:
+    """Drop the panoptic-separated dataset ``name`` and its ``_stuffonly``
+    view from the port's catalogs: ``register_all_coco`` keeps the first
+    registration of a name, and phase dataset_eval registers the U2Seg names
+    under another (by now deleted) root."""
+    from u2seg_torch.data.catalog import DatasetCatalog, MetadataCatalog
+
+    for n in (name, name.replace("_separated", "_stuffonly")):
+        if n in DatasetCatalog:
+            DatasetCatalog.remove(n)
+        if n in MetadataCatalog.list():
+            MetadataCatalog.remove(n)
+
+
+def per_step_launches(tl: TimedLoader, end) -> list:
+    """(K1, K3) launched by each step: a step runs between two draws."""
+    marks = tl.counts + [end]
+    return [(b[0] - a[0], b[1] - a[1]) for a, b in zip(marks, marks[1:])]
+
+
+def mapper_stages(cfg, dicts) -> dict:
+    """ms per image of ``DatasetMapper`` on one thread, by stage: file reads
+    (image, sem-seg map), augment (sampling, which resizes the image to feed
+    the next augmentation, then the image's own transform), instances (each
+    mask decoded or rasterised, transformed and cut to its patch), and the
+    rest (sem-seg transform, boxes, bucket rescale, padding, f32)."""
+    from u2seg_torch.data import mapper as mapper_mod
+    from u2seg_torch.data import transforms as T
+
+    m = mapper_mod.DatasetMapper(cfg, is_train=True)
+    rng = np.random.RandomState(0)
+    with Timers({"read_image": (mapper_mod, "read_image"),
+                 "read_sem_seg": (mapper_mod, "read_sem_seg"),
+                 "sample": (T.AugmentationList, "get_transform"),
+                 "apply_image": (T.TransformList, "apply_image"),
+                 "instances": (mapper_mod.DatasetMapper, "_patch")}) as tm:
+        t0 = time.perf_counter()
+        for d in dicts:
+            m(d, rng)
+        total = time.perf_counter() - t0
+    n = len(dicts)
+    ms = {k: v * 1e3 / n for k, v in tm.seconds.items()}
+    out = dict(read=ms["read_image"] + ms["read_sem_seg"],
+               augment=ms["sample"] + ms["apply_image"], instances=ms["instances"],
+               total=total * 1e3 / n, instances_per_image=tm.calls["instances"] / n)
+    out["rest"] = out["total"] - out["read"] - out["augment"] - out["instances"]
+    return out
+
+
+def phase_train_net(dev, bare_ms=None):
+    """``python -m u2seg_torch.tools.train_net`` at full width, called as
+    ``train_net.main(argv)``: u2seg_R50_800.yaml with ims_per_batch 2 and 4
+    loader threads, on 32 files of ``write_synthetic_u2seg_train`` (the eval
+    sizes), starting from ``model.weights`` (a file of the seeded model), 8
+    iterations, ``--resume`` to 10, then ``--eval-only --eval-mode auto`` on
+    a 16-image synthetic val set with the last checkpoint as
+    ``model.weights`` and the test score threshold at 0."""
+    import tempfile
+
+    from u2seg_torch.config import load_config
+    from u2seg_torch.data.coco import load_coco_json, load_sem_seg, merge_to_panoptic
+    from u2seg_torch.data.image_io import read_image
+    from u2seg_torch.engine import predictor as tpred
+    from u2seg_torch.engine.checkpoint import load_reference_state_dict
+    from u2seg_torch.models.build import build_model
+    from u2seg_torch.testing import (
+        register_synthetic_coco, write_synthetic_coco, write_synthetic_u2seg_train,
+    )
+    from u2seg_torch.tools import benchmark, train_net
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "datasets")
+        ds = write_synthetic_u2seg_train(data, TRAIN_NET_SIZES, 800, seed=21)
+        forget_dataset(ds.dataset)
+        val = write_synthetic_coco(os.path.join(tmp, "val"), DATASET_SIZES,
+                                   np.random.RandomState(13), 800)
+        register_synthetic_coco(TRAIN_NET_VAL, val)
+        log(f"[train_net] wrote {len(TRAIN_NET_SIZES)} training scenes (JPEG, CutLER RLE "
+            f"and polygon instances, 4-20 per image and one image of 105, one crowd "
+            f"region, stuff maps) and a {len(DATASET_SIZES)}-image val set in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = os.path.join(tmp, "out")
+        init = os.path.join(tmp, "init.pth")
+        base = [f"datasets.root={data}", "solver.ims_per_batch=2",
+                "dataloader.num_workers=4", f"output_dir={out}",
+                f"datasets.train=[{ds.dataset}]"]
+        cfg = load_config(U2SEG_YAML, base)
+        torch.save({"model": build_model(cfg, device="cpu", seed=0).state_dict()}, init)
+
+        # the loader alone and the mapper's stages
+        loader_rows = {}
+        for workers in (0, 4):
+            cfg.dataloader.num_workers = workers
+            loader_rows[workers] = benchmark.benchmark_data(cfg, iters=10)
+        cfg.dataloader.num_workers = 4
+        dicts = merge_to_panoptic(load_coco_json(ds.instances_json, ds.image_dir),
+                                  load_sem_seg(ds.sem_seg_dir, ds.image_dir))
+        stages = mapper_stages(cfg, dicts[:8])
+        log(f"[train_net] the loader alone (benchmark --task data, 10 batches of 2 after one): "
+            + ", ".join(f"{r['images_per_sec']:.1f} images/s at num_workers {w}"
+                        for w, r in loader_rows.items())
+            + f"; DatasetMapper on one thread, ms per image: read {stages['read']:.1f}, "
+            f"augment {stages['augment']:.1f} (sampling resizes the image once, the "
+            f"transform again), instances {stages['instances']:.1f} "
+            f"({stages['instances_per_image']:.1f} masks), pad and the rest "
+            f"{stages['rest']:.1f}; total {stages['total']:.1f}")
+        same = []
+        firsts = []
+        for _ in range(2):
+            it = train_net.build_train_loader(cfg)
+            firsts.append([next(it) for _ in range(4)])
+            it.close()
+        for a, b in zip(*firsts):
+            same.append(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a))
+        log(f"[train_net] two loaders of one seed at 4 threads: first 4 batches "
+            f"{'identical' if all(same) else 'DIFFER'}")
+        if not all(same):
+            raise AssertionError(f"two loaders of one seed differ: {same}")
+
+        # train, resume, evaluate
+        # flags first: the config overrides take the rest of the command line
+        argv = lambda *flags: ["--config-file", U2SEG_YAML, *flags] + base
+        torch.cuda.reset_peak_memory_stats(dev)
+        with loader_probe() as probe:
+            reset_kernel_counts()                        # the main path starts
+            t0 = time.perf_counter()
+            tr = train_net.main(argv("--max-iter", str(TRAIN_NET_STEPS))
+                                + [f"model.weights={init}"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            end = kernel_counts()                        # the main path ends
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            steps = per_step_launches(probe.loaders[0], end)
+            totals = [v for v, _ in tr.storage.history("total_loss").values()]
+            timer = [v * 1e3 for v, _ in tr.storage.history("time").values()]
+            waits = probe.loaders[0].waits
+            bad = probe.loaders[0].bad
+            probe.loaders[0].close()
+            ckpt = tr.checkpointer.get_checkpoint_file()
+            del tr
+            torch.cuda.empty_cache()
+            reset_kernel_counts()                        # the resumed path starts
+            tr2 = train_net.main(argv("--resume", "--max-iter", str(TRAIN_NET_RESUMED)))
+            end2 = kernel_counts()                       # the resumed path ends
+            steps2 = per_step_launches(probe.loaders[1], end2)
+            totals2 = [v for v, _ in tr2.storage.history("total_loss").values()]
+            start2, ckpt2 = tr2.start_iter, tr2.checkpointer.get_checkpoint_file()
+            bad += probe.loaders[1].bad
+            waits2 = probe.loaders[1].waits
+            probe.loaders[1].close()
+            del tr2
+            torch.cuda.empty_cache()
+        last = os.path.join(out, ckpt2)
+        res.update(loader=loader_rows, mapper_ms=stages, steps=steps, resumed_steps=steps2,
+                   totals=totals + totals2, timer_ms=timer, wait_ms=waits + waits2,
+                   peak_mib=peak, train_s=train_s, start_iter=start2, ckpts=[ckpt, ckpt2],
+                   launches=dict(k1=sum(s[0] for s in steps + steps2),
+                                 k3=sum(s[1] for s in steps + steps2)))
+        timer_med = float(np.median(timer)) if timer else float("nan")
+        log(f"[train_net] train_net.main, u2seg_R50_800.yaml at full width (SyncBN on one "
+            f"rank, 800 clusters, bf16), b=2, 4 loader threads: {TRAIN_NET_STEPS} steps, "
+            f"total losses " + ", ".join(f"{v:.4f}" for v in totals)
+            + f"; then --resume from {ckpt}: start_iter {start2}, "
+            + ", ".join(f"{v:.4f}" for v in totals2)
+            + f"; K1/K3 launches per step {steps + steps2}; peak memory {peak:.0f} MiB")
+        log(f"[train_net] step time from IterationTimer (steps 3-{TRAIN_NET_STEPS - 1}): median "
+            f"{timer_med:.1f} ms ({', '.join(f'{v:.1f}' for v in timer)})"
+            + (f"; phase train's bare step in this run: median {bare_ms:.1f} ms -> ratio "
+               f"{timer_med / bare_ms:.3f}" if bare_ms else "")
+            + f"; the trainer's wait for data per step (next() on the loader): "
+            + ", ".join(f"{v:.1f}" for v in waits + waits2) + " ms")
+
+        # --eval-only on the last checkpoint, render budgets calibrated on it.
+        # Ten steps move the BN statistics far from the seeded init, and no
+        # class score of an untrained 801-way softmax reaches 0.05: with no
+        # detection no instance mapping is written, and the panoptic
+        # evaluator of an auto run stops (ROADMAP.md section 3). The
+        # threshold goes to 0: the top-2048 candidates still bound the work.
+        ev = [f"model.weights={last}", f"datasets.test=[{TRAIN_NET_VAL}]",
+              "model.roi_heads.score_thresh_test=0.0"]
+        ecfg = load_config(U2SEG_YAML, base + ev)
+        pred = tpred.DefaultPredictor(ecfg)
+        imgs = [read_image(os.path.join(val.image_dir, f"{i:012d}.png"))
+                for i in val.image_ids]
+        thresh = calibrate_render(pred, imgs, ecfg.test.ims_per_batch, "train_net")
+        t = ecfg.test
+        ev += [f"model.panoptic.instance_conf_thresh={thresh}",
+               f"test.render_k_fuse={t.render_k_fuse}", f"test.render_max_runs={t.render_max_runs}",
+               f"test.fetch_runs_per_image={t.fetch_runs_per_image}"]
+        del pred
+        torch.cuda.empty_cache()
+        built = []
+        real = tpred.DefaultPredictor
+
+        def recording(cfg, model=None, device=None):
+            built.append(real(cfg, model=model, device=device))
+            return built[-1]
+
+        tpred.DefaultPredictor = recording
+        try:
+            reset_kernel_counts()                        # the eval-only path starts
+            t0 = time.perf_counter()
+            metrics = train_net.main(argv("--eval-only", "--eval-mode", "auto") + ev)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            eval_k1 = kernel_counts()[0]                 # the eval-only path ends
+        finally:
+            tpred.DefaultPredictor = real
+        saved = load_reference_state_dict(last)
+        sd = {k: v.cpu() for k, v in built[0].model.state_dict().items()}
+        on_ckpt = set(sd) == set(saved) and all(torch.equal(sd[k], saved[k]) for k in sd)
+        seeded = build_model(ecfg, device="cpu", seed=0).state_dict()
+        differ = sum(not torch.equal(sd[k], seeded[k]) for k in sd)
+        flat = {f"{t_}/{k}": v for t_, vals in metrics[TRAIN_NET_VAL].items()
+                for k, v in vals.items() if "-" not in k}
+        n_val = len(DATASET_SIZES)
+        res.update(eval_images_per_s=n_val / eval_s, eval_s=eval_s, eval_k1=eval_k1,
+                   eval_on_checkpoint=on_ckpt, eval_differs_from_seeded=differ,
+                   eval_metrics=flat)
+        log(f"[train_net] --eval-only --eval-mode auto on {ckpt2}: {n_val} images in "
+            f"{eval_s:.2f} s = {n_val / eval_s:.2f} images/s end to end (model build and "
+            f"checkpoint load included), K1 launches {eval_k1}; the predictor held the "
+            f"checkpoint's tensors: {on_ckpt} ({differ} of {len(sd)} differ from the seeded "
+            f"init); metrics " + ", ".join(f"{k} {v:.4f}" for k, v in flat.items()))
+    from u2seg_torch.data.catalog import DatasetCatalog
+    DatasetCatalog.remove(TRAIN_NET_VAL)
+    all_steps = res["steps"] + res["resumed_steps"]
+    problems = []
+    if not (len(res["totals"]) == TRAIN_NET_RESUMED and all(np.isfinite(res["totals"]))):
+        problems.append(f"losses {res['totals']}")
+    if any(s != (4, 4) for s in all_steps) or len(all_steps) != TRAIN_NET_RESUMED:
+        problems.append(f"K1/K3 launches per step {all_steps}")
+    if res["start_iter"] != TRAIN_NET_STEPS or res["ckpts"] != [
+            f"model_{TRAIN_NET_STEPS - 1:07d}", f"model_{TRAIN_NET_RESUMED - 1:07d}"]:
+        problems.append(f"resume: start_iter {res['start_iter']}, checkpoints {res['ckpts']}")
+    if not (res["eval_on_checkpoint"] and res["eval_differs_from_seeded"] > 0):
+        problems.append("--eval-only did not run on the checkpoint's tensors")
+    if res["eval_k1"] < 4:
+        problems.append(f"--eval-only launched K1 {res['eval_k1']} times")
+    if bad:
+        problems.append(f"patches outside [0, 1] or boxes outside their image in batches {bad}")
+    bad_metrics = [k for k, v in res["eval_metrics"].items()
+                   if not (np.isfinite(v) or np.isnan(v))]
+    if "sem_seg/mIoU" not in res["eval_metrics"] or bad_metrics:
+        problems.append(f"eval metrics {res['eval_metrics']}")
+    log(f"[train_net] gates: finite losses, 4 + 4 launches per step, resume at "
+        f"{TRAIN_NET_STEPS}, eval-only on the checkpoint, patches in [0, 1] and boxes "
+        f"inside their image: {'ok' if not problems else 'FAIL ' + '; '.join(problems)}")
+    if problems:
+        raise AssertionError("train_net failed: " + "; ".join(problems))
+    res.update(timer_median_ms=timer_med, bare_ms=bare_ms)
+    return res
+
+
+def tiny_train_net_config():
+    """The tiny config of phase train_cpu (f32, TF32 off, the Pallas-semantics
+    pooler, every candidate sampled) over 7 clusters and 28 stuff classes,
+    trained from small files: 64x96 buckets keep the RPN's anchors under its
+    2048 samples, so no random draw matters on either device."""
+    from u2seg_torch.testing import tiny_spmd_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_spmd_config()
+    m = cfg.model
+    m.roi_heads.pooler_impl = "pallas"
+    m.rpn.batch_size_per_image, m.rpn.positive_fraction = 2048, 0.5
+    m.roi_heads.batch_size_per_image, m.roi_heads.positive_fraction = 256, 0.5
+    m.sem_seg_head.num_classes = 28
+    m.max_gt_instances = 24
+    cfg.input.min_size_train, cfg.input.max_size_train = (48, 64), 96
+    cfg.input.pad_buckets = ((64, 96), (96, 64))
+    cfg.solver.ims_per_batch, cfg.solver.max_iter = 2, 2
+    cfg.dataloader.num_workers = 2
+    cfg.datasets.cluster_num = 7
+    cfg.datasets.train = ("u2seg_7_train_panoptic_separated",)
+    return cfg
+
+
+def phase_train_net_cpu(dev):
+    """``train_net.main`` of the tiny config, 2 steps, on the card and with
+    ``--device cpu``, from the same files: the two loaders hand out the same
+    batches, and each step's losses agree at phase train_cpu's tolerance
+    (rtol 1e-3)."""
+    import tempfile
+
+    from u2seg_torch.config import save_config
+    from u2seg_torch.testing import write_synthetic_u2seg_train
+    from u2seg_torch.tools import train_net
+
+    cfg = tiny_train_net_config()
+    losses, batches, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "datasets")
+        ds = write_synthetic_u2seg_train(data, [(60, 80), (48, 64), (80, 60), (64, 48)], 7, seed=0)
+        cfg.datasets.root = data
+        path = os.path.join(tmp, "tiny.yaml")
+        save_config(cfg, path)
+        for name, device in (("cpu", "cpu"), ("gpu", "cuda")):
+            forget_dataset(ds.dataset)
+            with loader_probe(keep=True) as probe:
+                reset_kernel_counts()
+                tr = train_net.main(["--config-file", path, "--device", device,
+                                     f"output_dir={os.path.join(tmp, name)}"])
+                launches[name] = kernel_counts()
+            losses[name] = {k: [v for v, _ in h.values()]
+                            for k, h in tr.storage.histories().items() if k.startswith(("loss", "total"))}
+            batches[name] = probe.loaders[0].batches
+            probe.loaders[0].close()
+    same_batches = len(batches["cpu"]) == len(batches["gpu"]) == 2 and all(
+        all(np.array_equal(a[k], b[k]) for k in a) for a, b in zip(batches["cpu"], batches["gpu"]))
+    worst = max(abs(g - c) / max(abs(c), 1e-6) for k in losses["cpu"]
+                for c, g in zip(losses["cpu"][k], losses["gpu"][k]))
+    keys_ok = sorted(losses["cpu"]) == sorted(losses["gpu"]) == sorted(LOSS_KEYS + ["total_loss"])
+    log(f"[train_net_cpu] tiny config f32, train_net.main 2 steps on the card and with --device "
+        f"cpu: loader batches {'identical' if same_batches else 'DIFFER'}; largest relative "
+        f"loss difference {worst:.2e} (tol 1e-3); card K1/K3 launches {launches['gpu']}; "
+        f"total losses cpu {losses['cpu']['total_loss']} card {losses['gpu']['total_loss']}")
+    if not (same_batches and keys_ok and worst <= 1e-3 and launches["gpu"] == (8, 8)):
+        raise AssertionError(f"train_net card vs CPU: {losses}, {launches}")
+    return dict(worst_rel=worst, launches=dict(k1=launches["gpu"][0], k3=launches["gpu"][1]))
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
-                  "ddp", "ddp_cpu"]
+                  "ddp", "ddp_cpu", "train_net", "train_net_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -2595,6 +3010,14 @@ def main():
         report["ddp"] = phase_ddp()
     if "ddp_cpu" in phases:
         report["ddp_cpu"] = phase_ddp_cpu()
+    if "train_net" in phases:
+        torch.cuda.empty_cache()
+        bare = (float(np.median([r["ms"] for r in report["train"]["steps"]]))
+                if "train" in report else None)
+        report["train_net"] = phase_train_net(dev, bare)
+        torch.cuda.empty_cache()
+    if "train_net_cpu" in phases:
+        report["train_net_cpu"] = phase_train_net_cpu(dev)
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:
@@ -2602,8 +3025,10 @@ def main():
         k4, k5, ev = report["k4"], report["k5"], report["eval"]
         eval_launches = sum(m["k1_launches"] for m in ev["modes"].values())
         loops = [report["train_loop"]["launches"], report["train_loop"]["resumed_launches"],
-                 report["ddp"]["ranks"][0]["launches"]]        # rank 0's counts
-        dataset_launches = report["dataset_eval"]["launches"]
+                 report["ddp"]["ranks"][0]["launches"],         # rank 0's counts
+                 report["train_net"]["launches"], report["train_net_cpu"]["launches"]]
+        dataset_launches = (report["dataset_eval"]["launches"]
+                            + report["train_net"]["eval_k1"])
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
                         + tr["forward_launches"] + sum(c["k1"] for c in loops))
         bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops)

@@ -60,7 +60,9 @@ def test_no_source_imports_jax_or_the_jax_package():
             "evaluation/hungarian.py", "evaluation/coco_eval_core.py",
             "evaluation/coco_evaluator.py", "evaluation/sem_seg_evaluator.py",
             "evaluation/panoptic_eval_core.py", "evaluation/panoptic_evaluator.py",
-            "evaluation/testing.py"} <= rel
+            "evaluation/testing.py", "structures/masks.py", "data/mapper.py",
+            "tools/train_net.py", "tools/plain_train_net.py", "tools/benchmark.py",
+            "tools/convert_weights.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -144,3 +146,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         DefaultTrainer(Config(), [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_panoptic_evaluation(Config())
+    from u2seg_torch.tools import train_net
+
+    for extra in ([], ["--eval-only"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_net.main(extra)

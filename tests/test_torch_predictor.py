@@ -52,8 +52,13 @@ def test_resize_transform_matches_jax_on_float32(h, w, nh, nw):
 
 
 def test_resize_transform_takes_float_images_only():
+    """Float images take the f32 bilinear resize (the predictor's path);
+    uint8 images take OpenCV's fixed-point resize (the training mapper's,
+    tests/test_torch_transforms_train.py); other types are refused."""
+    img = np.zeros((4, 4, 3), np.float32)
+    assert T.ResizeTransform(4, 4, 8, 8).apply_image(img).dtype == np.float32
     with pytest.raises(TypeError):
-        T.ResizeTransform(4, 4, 8, 8).apply_image(np.zeros((4, 4, 3), np.uint8))
+        T.ResizeTransform(4, 4, 8, 8).apply_image(np.zeros((4, 4, 3), np.int32))
 
 
 @pytest.mark.parametrize("h,w", [(480, 640), (427, 640), (640, 480), (500, 375),

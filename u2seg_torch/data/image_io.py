@@ -52,6 +52,12 @@ def write_png(path: str, image: np.ndarray) -> None:
     Image.fromarray(np.ascontiguousarray(image)).save(path, format="PNG")
 
 
+def write_jpeg(path: str, image: np.ndarray) -> None:
+    """A uint8 (H, W, 3) RGB array -> JPEG file (Pillow's default quality)."""
+    Image, _ = _pil(path)
+    Image.fromarray(np.ascontiguousarray(image)).save(path, format="JPEG")
+
+
 def id2rgb(id_map: np.ndarray) -> np.ndarray:
     """Segment id -> RGB encoding (panopticapi convention, little-endian)."""
     out = np.zeros(id_map.shape + (3,), np.uint8)

@@ -81,7 +81,8 @@ class DefaultPredictor:
 
     Takes a raw BGR or RGB uint8 image, resizes the shortest edge to the
     test size, pads to a bucket, runs the model, and returns
-    original-resolution outputs.
+    original-resolution outputs. Without a ``model`` it builds one and
+    loads ``cfg.model.weights`` into it (when set).
     """
 
     def __init__(self, cfg: Config, model=None,
@@ -92,6 +93,10 @@ class DefaultPredictor:
         self.cfg = cfg
         if model is None:
             model = build_model(cfg, device=device)
+            if cfg.model.weights:
+                from u2seg_torch.engine.checkpoint import load_model_weights
+
+                load_model_weights(model, cfg.model.weights)
         elif device is not None:
             model = model.to(torch.device(device))
         self.model = model.eval()

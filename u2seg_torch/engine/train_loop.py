@@ -23,7 +23,7 @@ import torch
 
 from u2seg_torch.config import Config
 from u2seg_torch.engine import hooks as hooks_lib
-from u2seg_torch.engine.checkpoint import Checkpointer
+from u2seg_torch.engine.checkpoint import Checkpointer, load_model_weights
 from u2seg_torch.engine.events import CommonMetricPrinter, EventStorage, JSONWriter
 from u2seg_torch.engine.trainer import (
     Batch, create_train_state, make_train_step, sampling_seed,
@@ -119,19 +119,23 @@ class DefaultTrainer(TrainerBase):
 
     ``data_loader`` yields global batches as mapper dicts (``image``,
     ``image_size``, ``gt_boxes``, ``gt_classes``, ``gt_valid``, optional
-    ``gt_masks`` and ``sem_seg``). ``mesh`` defaults to ``create_mesh(device)``:
-    the default process group, on ``cuda`` unless ``device`` names another.
-    Each step's sampling generator is seeded from (seed + 1, rank, update
-    count), so a resumed run continues the uninterrupted one bit for bit.
+    ``gt_masks`` and ``sem_seg``), of which each process takes its rows;
+    with ``sharded_loader`` it yields this process's own rows (a loader
+    sharded by rank, as ``tools/train_net.py`` builds it). ``mesh`` defaults
+    to ``create_mesh(device)``: the default process group, on ``cuda``
+    unless ``device`` names another. Each step's sampling generator is
+    seeded from (seed + 1, rank, update count), so a resumed run continues
+    the uninterrupted one bit for bit.
     """
 
     def __init__(self, cfg: Config, data_loader: Iterable[dict], mesh=None,
-                 device=None):
+                 device=None, sharded_loader: bool = False):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else create_mesh(device)
         self.device = self.mesh.device
         self._loader = iter(data_loader)
+        self._sharded_loader = sharded_loader
         self.schedule = build_lr_schedule(cfg.solver)
         self.seed = cfg.seed if cfg.seed >= 0 else 0
         self.state = create_train_state(cfg, device=self.device, seed=self.seed)
@@ -156,12 +160,17 @@ class DefaultTrainer(TrainerBase):
                 "iteration": self.iter}
 
     def resume_or_load(self, resume: bool = True) -> bool:
+        """Resume from the newest checkpoint of ``output_dir`` when
+        ``resume`` and there is one; otherwise load ``cfg.model.weights``
+        (when set) into the model and start at iteration 0."""
         restored, resumed = self.checkpointer.resume_or_load(
             None, resume, map_location=self.device)
         if resumed:
             self.model.load_state_dict(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
             self.start_iter = int(restored["iteration"]) + 1
+        elif self.cfg.model.weights:
+            load_model_weights(self.model, self.cfg.model.weights)
         return resumed
 
     # -- loop ---------------------------------------------------------
@@ -169,7 +178,8 @@ class DefaultTrainer(TrainerBase):
         return next(self._loader)
 
     def run_step(self):
-        batch = shard_batch(self.mesh, batch_from_numpy(self._next_batch_raw()))
+        batch = batch_from_numpy(self._next_batch_raw())
+        batch = batch.to(self.device) if self._sharded_loader else shard_batch(self.mesh, batch)
         self._generator.manual_seed(
             sampling_seed(self.seed + 1, self.mesh.rank, self.state.step))
         metrics = self.step_fn(batch, self._generator)

@@ -3,8 +3,9 @@
 of the JAX package's trainer test), small but complete: cascade heads,
 SyncBN, class-agnostic regression. Also numpy-drawn scenes, a synthetic
 COCO-format panoptic evaluation set in U2Seg's encoding, and a predictor
-that answers with its ground truth in cluster space. Used by the CPU tests,
-the data-parallel dry run and ``chip_smoke.py``.
+that answers with its ground truth in cluster space, and a U2Seg
+pseudo-label training set. Used by the CPU tests, the data-parallel dry run
+and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -307,3 +308,144 @@ class OraclePredictor:
                 g.clear()
         for g in groups.values():
             yield from ((i, self.answer(i)) for i in g)
+
+
+# ---------------------------------------------------------------------------
+# a synthetic U2Seg training set (CutLER instances, STEGO stuff maps)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SyntheticU2SegTrain:
+    """Where ``write_synthetic_u2seg_train`` put a set."""
+    dataset: str            # the registered name of ``register_all_coco``
+    image_dir: str
+    instances_json: str
+    sem_seg_dir: str
+    image_ids: List[int]
+    crowded_image_id: int   # the image with more instances than the config's max_gt
+
+
+def _star_polygon(rng, cx: float, cy: float, r: float) -> np.ndarray:
+    """A non-convex polygon of 12-40 vertices around (cx, cy): radii drawn
+    in [0.35 r, r] at sorted angles, flattened [x0, y0, x1, y1, ...]."""
+    n = int(rng.randint(12, 41))
+    th = np.sort(rng.rand(n)) * 2 * np.pi
+    rad = r * (0.35 + 0.65 * rng.rand(n))
+    return np.stack([cx + rad * np.cos(th), cy + rad * np.sin(th)], 1).reshape(-1)
+
+
+def _ellipse_mask(rng, h: int, w: int, cx: float, cy: float, r: float) -> np.ndarray:
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ay, ax = r * (0.5 + 0.5 * rng.rand()), r * (0.5 + 0.5 * rng.rand())
+    th = rng.rand() * np.pi
+    dy, dx = yy - cy, xx - cx
+    u = (dx * np.cos(th) + dy * np.sin(th)) / ax
+    v = (-dx * np.sin(th) + dy * np.cos(th)) / ay
+    return (u * u + v * v) <= 1.0
+
+
+def write_synthetic_u2seg_train(root: str, sizes: Sequence[Tuple[int, int]],
+                                cluster_num: int, seed: int) -> SyntheticU2SegTrain:
+    """Write a U2Seg pseudo-label training set under ``root`` at the paths
+    that ``data.builtin.register_all_coco(root, cluster_num)`` names for
+    ``u2seg_{cluster_num}_train_panoptic_separated``:
+      - JPEG scenes ``coco/train2017/{id:012d}.jpg`` of the given (h, w),
+        written by Pillow, the instances painted in;
+      - CutLER's instances JSON (categories 1..cluster_num): 4-20 instances
+        per image, about two thirds with an RLE-dict segmentation (an
+        ellipse) and one third with polygons (non-convex, 12-40 vertices,
+        centred anywhere, so some cross the border; now and then two
+        polygons per instance), boxes from the masks; one crowd
+        annotation; the last image holds ``Config().model.max_gt_instances
+        + 5`` instances;
+      - STEGO's stuff maps ``panoptic_stuff_ours/{id:012d}.png``: 2-4
+        horizontal bands of stuff labels 1..27, things 0;
+      - the panoptic PNGs and JSON of the same scenes."""
+    from u2seg_torch.data.builtin import (
+        _U2SEG_PANOPTIC_JSON, _U2SEG_PANOPTIC_ROOT, _U2SEG_SEMSEG_ROOT, _U2SEG_TRAIN_JSON,
+    )
+    from u2seg_torch.data.image_io import write_jpeg, write_panoptic_png, write_png
+    from u2seg_torch.evaluation import rle as rle_codec
+    from u2seg_torch.structures.masks import polygons_to_bitmask
+
+    rng = np.random.RandomState(seed)
+    n = cluster_num
+    image_dir = os.path.join(root, "coco/train2017")
+    sem_dir = os.path.join(root, _U2SEG_SEMSEG_ROOT.format(n=n))
+    pan_dir = os.path.join(root, _U2SEG_PANOPTIC_ROOT.format(n=n))
+    inst_json = os.path.join(root, _U2SEG_TRAIN_JSON.format(n=n))
+    pan_json = os.path.join(root, _U2SEG_PANOPTIC_JSON.format(n=n))
+    for d in (image_dir, sem_dir, pan_dir, os.path.dirname(inst_json),
+              os.path.dirname(pan_json)):
+        os.makedirs(d, exist_ok=True)
+    crowded = Config().model.max_gt_instances + 5
+    images, anns, pan_anns, ids = [], [], [], []
+    for k, (h, w) in enumerate(sizes):
+        image_id = 1000 + 13 * k
+        name = f"{image_id:012d}"
+        img = scene(rng, h, w)
+        sem = np.zeros((h, w), np.uint8)
+        bands = int(rng.randint(2, 5))
+        cuts = np.linspace(0, h, bands + 1).astype(int)
+        for j in range(bands):
+            sem[cuts[j]:cuts[j + 1]] = rng.randint(1, 28)
+        pan = (sem.astype(np.int64) + n)            # stuff segments: n + label
+        segments = {n + int(v): {"id": n + int(v), "category_id": n + int(v),
+                                 "iscrowd": 0} for v in np.unique(sem)}
+        count = crowded if k == len(sizes) - 1 else int(rng.randint(4, 21))
+        for i in range(count):
+            cx, cy = rng.rand() * w, rng.rand() * h
+            r = (0.04 + 0.2 * rng.rand()) * min(h, w) if count <= 20 else 4 + 6 * rng.rand()
+            if rng.rand() < 2 / 3:
+                mask = _ellipse_mask(rng, h, w, cx, cy, r)
+                if not mask.any():
+                    continue
+                segm = rle_codec.encode(mask.astype(np.uint8))
+                segm["counts"] = segm["counts"].decode("ascii")
+            else:
+                segm = [_star_polygon(rng, cx, cy, r).tolist()]
+                if rng.rand() < 0.2:
+                    segm.append(_star_polygon(rng, cx + r, cy, 0.5 * r).tolist())
+                mask = polygons_to_bitmask([np.asarray(p) for p in segm], h, w)
+                if not mask.any():
+                    continue
+            ys, xs = np.nonzero(mask)
+            x0, y0 = float(xs.min()), float(ys.min())
+            bbox = [x0, y0, float(xs.max() + 1) - x0, float(ys.max() + 1) - y0]
+            cat = int(rng.randint(1, n + 1))
+            img[mask] = rng.rand(3) * 255
+            sem[mask] = 0
+            seg_id = 1 + len(anns)
+            pan[mask] = seg_id
+            segments[seg_id] = {"id": seg_id, "category_id": cat, "iscrowd": 0}
+            anns.append({"id": seg_id, "image_id": image_id, "category_id": cat,
+                         "bbox": bbox, "area": float(mask.sum()), "iscrowd": 0,
+                         "segmentation": segm})
+        if k == 0:                                   # one crowd region
+            mask = _ellipse_mask(rng, h, w, w / 2, h / 2, min(h, w) / 6)
+            segm = rle_codec.encode(mask.astype(np.uint8))
+            segm["counts"] = segm["counts"].decode("ascii")
+            ys, xs = np.nonzero(mask)
+            anns.append({"id": 1 + len(anns), "image_id": image_id, "category_id": 1,
+                         "bbox": [float(xs.min()), float(ys.min()),
+                                  float(xs.max() - xs.min() + 1),
+                                  float(ys.max() - ys.min() + 1)],
+                         "area": float(mask.sum()), "iscrowd": 1, "segmentation": segm})
+        write_jpeg(os.path.join(image_dir, name + ".jpg"), img.astype(np.uint8))
+        write_png(os.path.join(sem_dir, name + ".png"), sem)
+        write_panoptic_png(pan, os.path.join(pan_dir, name + ".png"))
+        pan_anns.append({"image_id": image_id, "file_name": name + ".png", "segments_info": [
+            dict(s, area=int((pan == s["id"]).sum())) for s in segments.values()
+            if (pan == s["id"]).any()]})
+        images.append({"id": image_id, "file_name": name + ".jpg", "height": h, "width": w})
+        ids.append(image_id)
+    cats = [{"id": i, "name": f"cluster_{i}", "supercategory": "thing"}
+            for i in range(1, n + 1)]
+    with open(inst_json, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    with open(pan_json, "w") as f:
+        json.dump({"images": images, "annotations": pan_anns, "categories": [
+            dict(c, isthing=1) for c in cats] + [
+            {"id": n + s, "name": f"stuff_{s}", "isthing": 0} for s in range(1, 28)]}, f)
+    return SyntheticU2SegTrain(f"u2seg_{n}_train_panoptic_separated", image_dir,
+                               inst_json, sem_dir, ids, ids[-1])
