@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -144,7 +144,34 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    its image;
 18. train_net_cpu: ``train_net.main`` of the tiny config in f32 (TF32 off),
    2 steps from the same files on the card and with ``--device cpu``: equal
-   loader batches, losses within rtol 1e-3 (phase train_cpu's tolerance).
+   loader batches, losses within rtol 1e-3 (phase train_cpu's tolerance);
+19. pseudo: the pseudo-label pipeline through
+   ``u2seg_torch.tools.generate_pseudo_labels.main`` (stages cluster, assign,
+   panoptic, stuff, then supergt) on a synthetic set the phase writes into a
+   temporary directory (``testing.write_synthetic_pseudo_inputs``: 256 scenes
+   at the eval sizes with 8 CutLER-style RLE instances each, 2048 masked
+   crops, 27-label STEGO maps, a GT panoptic JSON), ViT-B/16 (dim 768, depth
+   12, 12 heads) from a seeded DINO state dict in the official names written
+   as ``.pth`` and loaded through ``--dino-weights``, crop 224, batch 64,
+   facet k, 800 clusters, k 20, 100 iterations, ``--select-json`` on. Fails
+   unless the features are finite, the decode JSON has every crop with ids in
+   [0, 800), the class-aware JSON keeps exactly the decoded keys, every
+   panoptic PNG reads back equal to its map, the semantic PNGs hold only
+   {0..27, 255}, and the supergt JSON maps every GT stuff category to one of
+   the 15 ids 801..815 and keeps the thing categories. Then the clustering
+   alone at N = 131072 features of D = 768 around 800 seeded centres: kNN
+   (k 20), k-means++ and 100 Lloyd steps (K 800, cosine) twice from one
+   generator seed, and the regularised selection: purity > 0.9, equal
+   assignments. Prints stage 1's crops/s with the host's read + resize per
+   crop, DINO's device ms per batch of 64, the kNN, seeding, Lloyd and
+   selection seconds at N = 131072 beside their f32 bounds, assembly ms per
+   image, peak memory. No hand kernel lies on this path (the JAX package's
+   is XLA too);
+20. pseudo_cpu: card against CPU in f32 (TF32 off): ViT-B/16 patch features
+   of 16 crops (relative L2 <= 1e-4), kNN indices at N = 8192 (>= 99.9%
+   equal), Lloyd from the same k-means++ centroids (assignments equal), and
+   stages 2-5 with ``--device cuda`` and ``--device cpu`` from one decode
+   JSON (every file equal byte for byte).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -2925,10 +2952,329 @@ def phase_train_net_cpu(dev):
     return dict(worst_rel=worst, launches=dict(k1=launches["gpu"][0], k3=launches["gpu"][1]))
 
 
+
+PSEUDO_SIZES = EVAL_SIZES[:4] * 64        # 256 scenes, 8 instances each: 2048 crops
+PSEUDO_CLUSTERS = 800
+SCALE_N, SCALE_D, SCALE_K, SCALE_KNN, SCALE_ITERS = 131072, 768, 800, 20, 100
+
+
+def gaussian_features(n: int, d: int, centres: int, spread: float, seed: int, dev):
+    """n seeded rows of dimension d around ``centres`` standard normal centres
+    (noise ``spread`` per coordinate), drawn on ``dev``; and their labels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randn(centres, d, generator=g, device=dev)
+    labels = torch.randint(0, centres, (n,), generator=g, device=dev)
+    return c[labels] + spread * torch.randn(n, d, generator=g, device=dev), labels
+
+
+def purity(labels: np.ndarray, assign: np.ndarray) -> float:
+    """Share of rows whose found cluster's majority true label is theirs."""
+    order = np.lexsort((labels, assign))
+    a, l = assign[order], labels[order]
+    pairs, counts = np.unique(np.stack([a, l]), axis=1, return_counts=True)
+    best = np.zeros(a.max() + 1, np.int64)
+    np.maximum.at(best, pairs[0], counts)
+    return float(best.sum() / len(labels))
+
+
+class panoptic_readback:
+    """Inside this block every panoptic PNG the tool writes is read back at
+    once and compared with the map it was written from (``self.bad`` lists
+    the files that differ; ``self.seconds`` is the time the checks took)."""
+
+    def __enter__(self):
+        from u2seg_torch.data import image_io
+        from u2seg_torch.pseudo import assembly
+
+        self._saved, self.count, self.bad, self.seconds = assembly.write_panoptic_png, 0, [], 0.0
+
+        def write(pan, path):
+            self._saved(pan, path)
+            t0 = time.perf_counter()
+            self.count += 1
+            if not np.array_equal(image_io.read_panoptic_png(path), pan):
+                self.bad.append(path)
+            self.seconds += time.perf_counter() - t0
+        assembly.write_panoptic_png = write
+        return self
+
+    def __exit__(self, *exc):
+        from u2seg_torch.pseudo import assembly
+
+        assembly.write_panoptic_png = self._saved
+
+
+def clustering_at_scale(dev) -> dict:
+    """``knn`` + k-means++ + Lloyd + ``select_representatives_regularized`` at
+    N = 131072, D = 768, K = 800, k = 20, 100 iterations, cosine, on features
+    around 800 centres; the k-means twice from one generator seed."""
+    from u2seg_torch.pseudo import kmeans as km
+
+    feats, labels = gaussian_features(SCALE_N, SCALE_D, SCALE_K, 0.1, 5, dev)
+    torch.cuda.synchronize()
+    out, runs = {}, []
+    t0 = time.perf_counter()
+    dists, _ = km.knn(feats, SCALE_KNN)
+    density = km.density_from_knn(dists)
+    torch.cuda.synchronize()
+    out["knn_s"] = time.perf_counter() - t0
+    for _ in range(2):
+        g = torch.Generator(device=dev).manual_seed(1)
+        t0 = time.perf_counter()
+        x = km._normalize(feats)
+        init = km._kmeans_pp_init(x, SCALE_K, "cosine", g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, assign = km.lloyd(x, init, SCALE_ITERS, "cosine")
+        torch.cuda.synchronize()
+        runs.append((t1 - t0, time.perf_counter() - t1, assign.cpu().numpy()))
+    out["seed_s"], out["lloyd_s"] = runs[0][0], runs[0][1]
+    out["seed_s_2"], out["lloyd_s_2"] = runs[1][0], runs[1][1]
+    out["repeat_equal"] = bool(np.array_equal(runs[0][2], runs[1][2]))
+    out["purity"] = purity(labels.cpu().numpy(), runs[0][2])
+    t0 = time.perf_counter()
+    sel = km.select_representatives_regularized(
+        feats, runs[0][2], np.maximum(density.cpu().numpy().astype(np.float64), 1e-12), SCALE_K)
+    out["select_s"] = time.perf_counter() - t0
+    out["selected"] = len(sel)
+    # the bounds: each Lloyd step's assign and sums are an N x K x D product
+    # each; the kNN an N x N x D one (f32 outside the tensor cores)
+    out["knn_bound_s"] = 2 * SCALE_N * SCALE_N * SCALE_D / PEAK_F32_FLOPS
+    out["lloyd_bound_s"] = SCALE_ITERS * 4 * SCALE_N * SCALE_K * SCALE_D / PEAK_F32_FLOPS
+    return out
+
+
+def phase_pseudo(dev):
+    """``python -m u2seg_torch.tools.generate_pseudo_labels`` at full width,
+    called as ``main(argv)``, stages cluster, assign, panoptic, stuff, then
+    supergt, on 256 synthetic scenes (the eval sizes) with 8 CutLER-style
+    RLE instances each (2048 crops), 27-label STEGO maps and a GT panoptic
+    JSON: ViT-B/16 from a seeded DINO ``.pth`` (``--dino-weights``), crop
+    224, batch 64, facet k, 800 clusters, k 20, 100 iterations, selection on;
+    then the clustering alone at N = 131072."""
+    import tempfile
+
+    from u2seg_torch.data.builtin_meta import STUFF_TO_SUPERCATEGORY
+    from u2seg_torch.data.image_io import read_sem_seg
+    from u2seg_torch.pseudo import assembly
+    from u2seg_torch.engine.checkpoint import load_reference_state_dict
+    from u2seg_torch.pseudo.dino import DinoViT, load_dino_state_dict, seeded_dino_state
+    from u2seg_torch.testing import write_synthetic_pseudo_inputs
+    from u2seg_torch.tools import generate_pseudo_labels as tool
+
+    k = PSEUDO_CLUSTERS
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ds = write_synthetic_pseudo_inputs(os.path.join(root, "data"), PSEUDO_SIZES,
+                                           instances_per_image=8, seed=0)
+        weights = os.path.join(root, "dino_vitbase16.pth")   # DINO's names, 224 px grid
+        torch.save(seeded_dino_state(DinoViT(), seed=0).state_dict(), weights)
+        log(f"[pseudo] wrote {len(PSEUDO_SIZES)} scenes' {len(ds.keys)} crops, RLE instances, "
+            f"STEGO maps, GT panoptic JSON and a seeded ViT-B/16 .pth in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "out")
+        argv = ["--num-clusters", str(k), "--crops-dir", ds.crops_dir, "--dino-weights", weights,
+                "--decode-json", os.path.join(out, "decode.json"),
+                "--select-json", os.path.join(out, "select.json"),
+                "--instances-json", ds.instances_json,
+                "--output-json", os.path.join(out, "curated.json"),
+                "--stego-dir", ds.stego_dir, "--panoptic-dir", os.path.join(out, "panoptic"),
+                "--panoptic-json", os.path.join(out, "panoptic.json"),
+                "--stuff-dir", os.path.join(out, "stuff"),
+                "--gt-panoptic-json", ds.gt_panoptic_json,
+                "--super-json", os.path.join(out, "super.json")]
+        seen = {}
+        embed = tool.embed_crops
+
+        def recording(*a, **kw):
+            seen["feats"], read_s = embed(*a, **kw)
+            return seen["feats"], read_s
+
+        tool.embed_crops = recording
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with panoptic_readback() as rb, Timers({
+                    "merge": (assembly, "merge_instances_and_stego"),
+                    "to_semantic": (assembly, "panoptic_to_semantic")}) as tm:
+                t0 = time.perf_counter()
+                res = tool.main(["--stage", "all"] + argv)
+                stage_s = time.perf_counter() - t0
+                res.update(tool.main(["--stage", "supergt"] + argv))
+        finally:
+            tool.embed_crops = embed
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        feats = seen["feats"]
+        cl = res["cluster"]
+        n = cl["crops"]
+
+        def load(name):
+            with open(os.path.join(out, name)) as f:
+                return json.load(f)
+
+        decode, curated, gt, sup = (load("decode.json"), load("curated.json"),
+                                    load(ds.gt_panoptic_json), load("super.json"))
+        failures = []
+        if tuple(feats.shape) != (len(ds.keys), 768) or not bool(torch.isfinite(feats).all()):
+            failures.append(f"features {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}")
+        if sorted(decode) != ds.keys or not all(0 <= v < k for v in decode.values()):
+            failures.append("decode JSON: keys or ids")
+        if sorted(f"{a['image_id']}_{a['id']}" for a in curated["annotations"]) != sorted(decode):
+            failures.append("class-aware JSON keys")
+        if rb.bad or rb.count != len(PSEUDO_SIZES):
+            failures.append(f"panoptic PNGs read back: {rb.count} written, {len(rb.bad)} differ")
+        stuff_dir = os.path.join(out, "stuff")
+        values = set()
+        for f in sorted(os.listdir(stuff_dir)):
+            values |= set(np.unique(read_sem_seg(os.path.join(stuff_dir, f))).tolist())
+        if not values <= set(range(28)) | {255} or len(os.listdir(stuff_dir)) != len(PSEUDO_SIZES):
+            failures.append(f"semantic PNG values {sorted(values)}")
+        for a, b in zip(gt["annotations"], sup["annotations"]):
+            for s, t in zip(a["segments_info"], b["segments_info"]):
+                c = s["category_id"]
+                want = k + STUFF_TO_SUPERCATEGORY[c] if c in STUFF_TO_SUPERCATEGORY else c
+                if t["category_id"] != want or (c in STUFF_TO_SUPERCATEGORY
+                                                and not k < want <= k + 15):
+                    failures.append(f"supergt: {c} -> {t['category_id']}")
+        sel = load("select.json")
+
+        # DINO alone: device ms per batch of 64 at 224 px, f32
+        model = DinoViT()
+        load_dino_state_dict(model, load_reference_state_dict(weights), grid_hw=(14, 14))
+        model.to(dev).eval()
+        x = torch.randn(64, 3, 224, 224, device=dev)
+        with torch.no_grad():
+            dino_ms = cuda_ms(lambda: model(x), iters=5)
+        del model, x
+    n_img = len(PSEUDO_SIZES)
+    # stages panoptic and stuff per image, the read-back checks taken out
+    assembly_ms = (res["panoptic"]["s"] - rb.seconds + res["stuff"]["s"]) * 1e3 / n_img
+    stage1_s = cl["embed_s"] + cl["knn_s"] + cl["kmeans_s"] + cl["select_s"]
+    log(f"[pseudo] generate_pseudo_labels.main, ViT-B/16 f32 crop 224 batch 64, {n} crops, "
+        f"{k} clusters: stage 1 {n / stage1_s:.1f} crops/s ({stage1_s:.2f} s; model build + "
+        f".pth load {cl['setup_s']:.2f} s before it): embed {cl['embed_s']:.2f} s, of which "
+        f"read + resize on the host {cl['read_s'] * 1e3 / n:.2f} ms per crop; kNN "
+        f"{cl['knn_s']:.3f} s, k-means {cl['kmeans_s']:.3f} s, selection {cl['select_s']:.3f} s "
+        f"({len(sel['selected_keys'])} picked)")
+    log(f"[pseudo] DINO ViT-B/16 alone: {dino_ms:.2f} ms per batch of 64 (device, f32, "
+        f"17.6 GFLOP a crop: {64 * 17.6e9 / (dino_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+    log(f"[pseudo] assembly {assembly_ms:.2f} ms per image over {n_img} (stage panoptic "
+        f"{(res['panoptic']['s'] - rb.seconds) * 1e3 / n_img:.2f}, of which merge "
+        f"{tm.seconds['merge'] * 1e3 / n_img:.2f}; stage stuff "
+        f"{res['stuff']['s'] * 1e3 / n_img:.2f}, of which to semantic "
+        f"{tm.seconds['to_semantic'] * 1e3 / n_img:.2f}); assign {res['assign']['s']:.2f} s, "
+        f"supergt {res['supergt']['s']:.2f} s; stages 1-4 {stage_s:.1f} s; peak memory "
+        f"{peak:.0f} MiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    sc = clustering_at_scale(dev)
+    scale_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[pseudo] clustering at N={SCALE_N}, D={SCALE_D}, K={SCALE_K}, k={SCALE_KNN}, "
+        f"{SCALE_ITERS} iterations, cosine: kNN {sc['knn_s']:.3f} s (f32 bound "
+        f"{sc['knn_bound_s']:.3f}), k-means++ {sc['seed_s']:.3f} / {sc['seed_s_2']:.3f} s, "
+        f"Lloyd {sc['lloyd_s']:.3f} / {sc['lloyd_s_2']:.3f} s (bound {sc['lloyd_bound_s']:.3f}), "
+        f"selection {sc['select_s']:.3f} s ({sc['selected']} picked); purity "
+        f"{sc['purity']:.4f}; two runs of one seed {'equal' if sc['repeat_equal'] else 'DIFFER'}; "
+        f"peak memory {scale_peak:.0f} MiB")
+    if sc["purity"] <= 0.9 or not sc["repeat_equal"]:
+        failures.append(f"at scale: purity {sc['purity']}, repeat {sc['repeat_equal']}")
+    if failures:
+        raise AssertionError(f"pseudo: {failures}")
+    return dict(crops=n, stage1_s=stage1_s, crops_per_s=n / stage1_s, cluster=cl,
+                dino_ms_per_64=dino_ms, assembly_ms_per_image=assembly_ms, stages_s=stage_s,
+                peak_mib=peak, scale=sc, scale_peak_mib=scale_peak)
+
+
+def phase_pseudo_cpu(dev):
+    """Card against CPU, f32 with TF32 off: ViT-B/16 patch features of 16 crops
+    (relative L2 <= 1e-4); kNN indices at N=8192, D=768 (>= 99.9% equal);
+    Lloyd from the same k-means++ centroids (assignments equal); stages 2-5
+    of the tool with ``--device cuda`` and ``--device cpu`` from one decode
+    JSON (files equal byte for byte)."""
+    import tempfile
+
+    from u2seg_torch.data.image_io import read_image
+    from u2seg_torch.data.transforms import resize_bilinear_u8
+    from u2seg_torch.pseudo import kmeans as km
+    from u2seg_torch.pseudo.dino import (
+        IMAGENET_MEAN, IMAGENET_STD, DinoViT, seeded_dino_state,
+    )
+    from u2seg_torch.testing import write_synthetic_pseudo_inputs
+    from u2seg_torch.tools import generate_pseudo_labels as tool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    failures = []
+    with tempfile.TemporaryDirectory() as root:
+        ds = write_synthetic_pseudo_inputs(os.path.join(root, "data"), EVAL_SIZES[:2],
+                                           instances_per_image=8, seed=3)
+        crops = np.stack([resize_bilinear_u8(read_image(os.path.join(ds.crops_dir, kk + ".png")),
+                                             224, 224) for kk in ds.keys])
+        mean = torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1)
+        std = torch.tensor(IMAGENET_STD).view(1, 3, 1, 1)
+        x = (torch.from_numpy(crops).permute(0, 3, 1, 2).float() / 255.0 - mean) / std
+        model = seeded_dino_state(DinoViT(), seed=0).eval()
+        with torch.no_grad():
+            want = model(x)[1]
+            got = model.to(dev)(x.to(dev))[1].cpu()
+        del model
+        feat_rel = float((got - want).norm() / want.norm())
+        if feat_rel > 1e-4:
+            failures.append(f"patch features {feat_rel}")
+
+        feats, _ = gaussian_features(8192, 768, 64, 1.0, 7, cpu)
+        _, idx_cpu = km.knn(feats, 20)
+        _, idx_gpu = km.knn(feats.to(dev), 20)
+        knn_equal = float((idx_gpu.cpu() == idx_cpu).float().mean())
+        if knn_equal < 0.999:
+            failures.append(f"kNN indices {knn_equal}")
+        x = km._normalize(feats)
+        init = km._kmeans_pp_init(x, 64, "cosine", torch.Generator().manual_seed(2))
+        _, a_cpu = km.lloyd(x, init, 20)
+        _, a_gpu = km.lloyd(x.to(dev), init.to(dev), 20)
+        lloyd_equal = bool(torch.equal(a_gpu.cpu(), a_cpu))
+        if not lloyd_equal:
+            failures.append(f"Lloyd assignments differ on {int((a_gpu.cpu() != a_cpu).sum())}")
+
+        decode = os.path.join(root, "decode.json")
+        common = ["--num-clusters", "8", "--seed", "1", "--crops-dir", ds.crops_dir,
+                  "--decode-json", decode, "--instances-json", ds.instances_json,
+                  "--stego-dir", ds.stego_dir, "--gt-panoptic-json", ds.gt_panoptic_json]
+        tool.main(["--stage", "cluster", "--kmeans-iters", "10"] + common)
+        trees = {}
+        for device in ("cuda", "cpu"):
+            o = os.path.join(root, device)
+            mine = ["--device", device, "--output-json", os.path.join(o, "curated.json"),
+                    "--panoptic-dir", os.path.join(o, "panoptic"),
+                    "--panoptic-json", os.path.join(o, "panoptic.json"),
+                    "--stuff-dir", os.path.join(o, "stuff"),
+                    "--super-json", os.path.join(o, "super.json")]
+            os.makedirs(o)
+            for stage in ("assign", "panoptic", "stuff", "supergt"):
+                tool.main(["--stage", stage] + common + mine)
+            trees[device] = {}
+            for d, _, files in os.walk(o):
+                for f in files:
+                    with open(os.path.join(d, f), "rb") as fh:
+                        trees[device][os.path.relpath(os.path.join(d, f), o)] = fh.read()
+        files_equal = trees["cuda"] == trees["cpu"] and len(trees["cpu"]) == 3 + 2 * len(EVAL_SIZES[:2])
+        if not files_equal:
+            failures.append("assembly outputs differ")
+    log(f"[pseudo_cpu] f32, TF32 off, card vs CPU: ViT-B/16 patch features of {len(ds.keys)} crops "
+        f"relative L2 {feat_rel:.2e} (tol 1e-4); kNN indices N=8192 D=768 k=20 equal on "
+        f"{knn_equal * 100:.3f}% (tol 99.9%); Lloyd from the same k-means++ centroids (K=64, "
+        f"20 iterations): assignments {'equal' if lloyd_equal else 'DIFFER'}; stages 2-5 "
+        f"--device cuda vs cpu: {len(trees['cpu'])} files {'equal' if files_equal else 'DIFFER'}")
+    if failures:
+        raise AssertionError(f"pseudo_cpu: {failures}")
+    return dict(feat_rel=feat_rel, knn_equal=knn_equal, lloyd_equal=lloyd_equal,
+                files_equal=files_equal)
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
-                  "ddp", "ddp_cpu", "train_net", "train_net_cpu"]
+                  "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -3018,6 +3364,12 @@ def main():
         torch.cuda.empty_cache()
     if "train_net_cpu" in phases:
         report["train_net_cpu"] = phase_train_net_cpu(dev)
+    if "pseudo" in phases:
+        torch.cuda.empty_cache()
+        report["pseudo"] = phase_pseudo(dev)
+        torch.cuda.empty_cache()
+    if "pseudo_cpu" in phases:
+        report["pseudo_cpu"] = phase_pseudo_cpu(dev)
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:

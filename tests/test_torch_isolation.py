@@ -62,7 +62,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             "evaluation/panoptic_eval_core.py", "evaluation/panoptic_evaluator.py",
             "evaluation/testing.py", "structures/masks.py", "data/mapper.py",
             "tools/train_net.py", "tools/plain_train_net.py", "tools/benchmark.py",
-            "tools/convert_weights.py"} <= rel
+            "tools/convert_weights.py", "pseudo/dino.py", "pseudo/kmeans.py",
+            "pseudo/uslt.py", "pseudo/assembly.py", "tools/generate_pseudo_labels.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -151,3 +152,24 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     for extra in ([], ["--eval-only"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_net.main(extra)
+    from u2seg_torch.tools import generate_pseudo_labels
+
+    for extra in ([], ["--stage", "supergt"], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            generate_pseudo_labels.main(extra)
+
+
+def test_pseudo_label_tool_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
+    """``--device cpu`` is the one way past the check: a stage that needs no
+    device then runs with no GPU."""
+    import json
+
+    from u2seg_torch.tools import generate_pseudo_labels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gt = tmp_path / "gt.json"
+    gt.write_text(json.dumps({"annotations": [], "categories": []}))
+    out = tmp_path / "super.json"
+    res = generate_pseudo_labels.main(["--stage", "supergt", "--device", "cpu",
+                                       "--gt-panoptic-json", str(gt), "--super-json", str(out)])
+    assert list(res) == ["supergt"] and res["supergt"]["annotations"] == 0 and out.exists()

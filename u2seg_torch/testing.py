@@ -3,9 +3,9 @@
 of the JAX package's trainer test), small but complete: cascade heads,
 SyncBN, class-agnostic regression. Also numpy-drawn scenes, a synthetic
 COCO-format panoptic evaluation set in U2Seg's encoding, and a predictor
-that answers with its ground truth in cluster space, and a U2Seg
-pseudo-label training set. Used by the CPU tests, the data-parallel dry run
-and ``chip_smoke.py``.
+that answers with its ground truth in cluster space, a U2Seg pseudo-label
+training set, and the inputs of the pseudo-label pipeline. Used by the CPU
+tests, the data-parallel dry run and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -449,3 +449,102 @@ def write_synthetic_u2seg_train(root: str, sizes: Sequence[Tuple[int, int]],
             {"id": n + s, "name": f"stuff_{s}", "isthing": 0} for s in range(1, 28)]}, f)
     return SyntheticU2SegTrain(f"u2seg_{n}_train_panoptic_separated", image_dir,
                                inst_json, sem_dir, ids, ids[-1])
+
+
+# ---------------------------------------------------------------------------
+# the inputs of the pseudo-label pipeline (crops, CutLER masks, STEGO maps)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SyntheticPseudoInputs:
+    """Where ``write_synthetic_pseudo_inputs`` put a set."""
+    crops_dir: str
+    instances_json: str
+    stego_dir: str
+    gt_panoptic_json: str
+    keys: List[str]         # the crops' names without extension, sorted
+    image_ids: List[int]
+
+
+def _pseudo_image(k: int, h: int, w: int, seed: int, instances_per_image: int,
+                  num_stego: int, crops_dir: str, stego_dir: str):
+    """One image of ``write_synthetic_pseudo_inputs``, from its own seed:
+    writes its crops and STEGO map; returns (image, annotations, GT)."""
+    from u2seg_torch.data.builtin_meta import STUFF_TO_SUPERCATEGORY, thing_ids
+    from u2seg_torch.data.image_io import write_png
+    from u2seg_torch.evaluation import rle as rle_codec
+
+    rng = np.random.RandomState(seed)
+    image_id = 2000 + 7 * k
+    name = f"{image_id:012d}"
+    img = scene(rng, h, w)
+    anns = []
+    for i in range(instances_per_image):
+        cx, cy = rng.rand() * w, rng.rand() * h
+        mask = _ellipse_mask(rng, h, w, cx, cy, (0.05 + 0.2 * rng.rand()) * min(h, w))
+        ys, xs = np.nonzero(mask)
+        y0, y1, x0, x1 = ys.min(), ys.max() + 1, xs.min(), xs.max() + 1
+        ann_id = 1 + k * instances_per_image + i
+        crop = img[y0:y1, x0:x1] * mask[y0:y1, x0:x1, None]
+        write_png(os.path.join(crops_dir, f"{image_id}_{ann_id}.png"), crop.astype(np.uint8))
+        segm = rle_codec.encode(mask.astype(np.uint8))
+        segm["counts"] = segm["counts"].decode("ascii")
+        anns.append({"id": ann_id, "image_id": image_id, "category_id": 1,
+                     "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                     "area": float(mask.sum()), "iscrowd": 0, "segmentation": segm})
+    gy, gx = rng.randint(3, 7, 2)
+    coarse = rng.randint(0, num_stego, (gy, gx))
+    stego = coarse[np.arange(h) * gy // h][:, np.arange(w) * gx // w]
+    np.save(os.path.join(stego_dir, name + ".npy"), stego.astype(np.int32))
+    cats = (list(rng.choice(thing_ids(), 3, replace=False))
+            + list(rng.choice(sorted(STUFF_TO_SUPERCATEGORY), 4, replace=False)))
+    gt = {"image_id": image_id, "file_name": name + ".png", "segments_info": [
+        {"id": 1 + j, "category_id": int(c), "iscrowd": 0, "area": 100, "bbox": [0, 0, 10, 10]}
+        for j, c in enumerate(cats)]}
+    return {"id": image_id, "file_name": name + ".jpg", "height": h, "width": w}, anns, gt
+
+
+def write_synthetic_pseudo_inputs(root: str, sizes: Sequence[Tuple[int, int]],
+                                  instances_per_image: int = 8, seed: int = 0,
+                                  num_stego: int = 27) -> SyntheticPseudoInputs:
+    """Write everything a whole run of ``tools.generate_pseudo_labels`` reads,
+    one ``scene`` per (h, w) of ``sizes``, under ``root``:
+      - ``crops/{image_id}_{ann_id}.png``: each instance's box cut from its
+        scene, pixels outside the mask 0 (the key ``assign_cluster_ids``
+        expects);
+      - ``instances.json``: class-agnostic CutLER-style instances,
+        ``instances_per_image`` ellipses per image that may overlap, as
+        compressed RLE (category 1), images named ``{id:012d}.jpg``;
+      - ``stego/{id:012d}.npy``: int32 STEGO maps with labels 0..num_stego-1,
+        blocks of a coarse random grid;
+      - ``gt_panoptic.json``: COCO panoptic GT segments over real COCO thing
+        and stuff ids (no PNGs: ``supergt`` reads the json only).
+    Each image draws from its own seed (drawn from ``seed``), on a pool of
+    threads: the files do not depend on the threads' order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from u2seg_torch.data.builtin_meta import COCO_PANOPTIC_CATEGORIES
+
+    seeds = np.random.RandomState(seed).randint(0, 2 ** 31 - 1, len(sizes))
+    crops_dir, stego_dir = os.path.join(root, "crops"), os.path.join(root, "stego")
+    os.makedirs(crops_dir, exist_ok=True)
+    os.makedirs(stego_dir, exist_ok=True)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        done = list(pool.map(lambda a: _pseudo_image(*a, instances_per_image, num_stego,
+                                                     crops_dir, stego_dir),
+                             [(k, h, w, int(s)) for k, ((h, w), s) in enumerate(zip(sizes, seeds))]))
+    images = [d[0] for d in done]
+    anns = [a for d in done for a in d[1]]
+    inst_json = os.path.join(root, "instances.json")
+    with open(inst_json, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "fg", "supercategory": "fg"}]}, f)
+    gt_json = os.path.join(root, "gt_panoptic.json")
+    with open(gt_json, "w") as f:
+        json.dump({"images": [dict(i, file_name=i["file_name"][:-4] + ".png") for i in images],
+                   "annotations": [d[2] for d in done],
+                   "categories": [{"id": c[0], "isthing": c[1], "name": c[2],
+                                   "supercategory": c[3]} for c in COCO_PANOPTIC_CATEGORIES]}, f)
+    return SyntheticPseudoInputs(crops_dir, inst_json, stego_dir, gt_json,
+                                 sorted(f"{a['image_id']}_{a['id']}" for a in anns),
+                                 [i["id"] for i in images])

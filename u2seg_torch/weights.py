@@ -14,6 +14,11 @@ checkpoint module, including its three layout changes:
   flips it, so the spatial axes are reversed;
 - the FPN norms: flax names them ``BatchNorm_{i}`` in build order, which is
   lateral then output for res5, res4, res3, res2.
+
+``dino_from_jax(params)`` does the same for the JAX ``DinoViT`` tree: it
+inverts ``convert_dino_vit`` (the patch kernel (p, p, 3, D) -> (D, 3, p, p),
+Dense kernels transposed, ``block{i}`` -> ``blocks.{i}``) and returns the
+official DINO names.
 """
 from __future__ import annotations
 
@@ -193,4 +198,30 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
             sd[dst + ".norm.bias"] = _np(sub["bias"])
     conv("sem_seg_head.predictor", sp["predictor"])
 
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def dino_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``DinoViT`` parameter tree -> a state dict in the official DINO
+    names (CPU f32 tensors), the inverse of ``convert_dino_vit``."""
+    sd: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _np(params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1),
+        "patch_embed.proj.bias": _np(params["patch_embed"]["bias"]),
+        "cls_token": _np(params["cls_token"]),
+        "pos_embed": _np(params["pos_embed"]),
+        "norm.weight": _np(params["norm"]["scale"]),
+        "norm.bias": _np(params["norm"]["bias"]),
+    }
+    for key, blk in params.items():
+        m = re.fullmatch(r"block(\d+)", key)
+        if not m:
+            continue
+        dst = f"blocks.{m.group(1)}."
+        for norm in ("norm1", "norm2"):
+            sd[dst + norm + ".weight"] = _np(blk[norm]["scale"])
+            sd[dst + norm + ".bias"] = _np(blk[norm]["bias"])
+        for path in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")):
+            tree = blk[path[0]][path[1]]
+            sd[dst + ".".join(path) + ".weight"] = _np(tree["kernel"]).T
+            sd[dst + ".".join(path) + ".bias"] = _np(tree["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
