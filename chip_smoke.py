@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -171,7 +171,26 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    of 16 crops (relative L2 <= 1e-4), kNN indices at N = 8192 (>= 99.9%
    equal), Lloyd from the same k-means++ centroids (assignments equal), and
    stages 2-5 with ``--device cuda`` and ``--device cpu`` from one decode
-   JSON (every file equal byte for byte).
+   JSON (every file equal byte for byte);
+21. zoo: the detector families through ``model_zoo.get`` at full width (bf16,
+   seeded weights, numpy-drawn scenes, the test score thresholds set to 0:
+   seeded heads score below 0.05), b=2 at 800x1344: Mask R-CNN R50-FPN 1x,
+   Keypoint R-CNN, RetinaNet and FCOS (forward, then one loss + backward on
+   20 drawn boxes with 64x64 mask patches and 17 keypoints each), Cascade
+   Mask R-CNN and the GN Mask R-CNN with its 4conv1fc box head (forward).
+   Prints ms per forward (synchronised, median of 5 after 3 warm ones),
+   peak memory and a torch.profiler view of 2 forwards (device busy share,
+   launches, top kernels); then every other zoo YAML the port builds, one b=1 forward
+   at 512x832. Fails unless the outputs are finite, every full-width forward
+   keeps detections, every head's gradient is finite and non-zero, K1
+   launches once per ROI pool of every forward (Mask R-CNN 2, Keypoint
+   R-CNN 2, Cascade 4, the dense detectors 0) and K1 + K3 once per pool of
+   every loss + backward (2 + 2), and the files not built are exactly the
+   RegNet, Swin and ViTDet ones (28 of 31 built);
+22. zoo_cpu: the six meta-architectures at a tiny config in f32 (TF32 off)
+   on the card (kernels) and on the CPU (plain versions): the ROI heads,
+   dense heads, RPN and sem-seg head on the CPU trunk's features, and one
+   train forward's losses (see ``phase_zoo_cpu`` for the tolerances).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -3271,10 +3290,395 @@ def phase_pseudo_cpu(dev):
                 files_equal=files_equal)
 
 
+# ---------------------------------------------------------------------------
+# Phases 21 / 22: the detector families of the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_FULL = (("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", True),
+            ("COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml", True),
+            ("COCO-Detection/retinanet_R_50_FPN_1x.yaml", True),
+            ("COCO-Detection/fcos_R_50_FPN_1x.yaml", True),
+            ("Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml", False),
+            ("Misc/mask_rcnn_R_50_FPN_3x_gn.yaml", False))
+ZOO_NOT_PORTED = ("Misc/mask_rcnn_regnetx_4gf_fpn_3x.yaml", "Misc/mask_rcnn_swin_t_fpn_3x.yaml",
+                  "ViTDet/mask_rcnn_vitdet_b_100ep.yaml")
+ZOO_SMALL_HW = (512, 832)
+ZOO_TIMED = 5
+
+
+def pools_per_forward(cfg) -> int:
+    """K1 launches of one forward (or K1 and K3 of one loss + backward):
+    one per ROI pool, 0 for the meta-architectures that pool nothing."""
+    m = cfg.model
+    if m.meta_architecture not in ("GeneralizedRCNN", "PanopticFPN"):
+        return 0
+    rh = m.roi_heads
+    box = len(rh.cascade_ious) if rh.name == "CascadeROIHeads" else 1
+    return box + int(rh.mask_on) + int(rh.keypoint_on)
+
+
+def zoo_calibrate(m) -> None:
+    """Seeded heads score below the 0.05 test thresholds (the R-CNN softmax
+    over 81 classes is near uniform, the dense heads sit at their 0.01
+    prior), so the thresholds of the model config ``m`` (which a built
+    model's heads share) go to 0: every candidate enters the NMS."""
+    m.roi_heads.score_thresh_test = 0.0
+    m.retinanet.score_thresh = 0.0
+    m.fcos.score_thresh = 0.0
+
+
+def output_tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    det = getattr(out, "detections", out)
+    ts = [det.boxes, det.scores[det.valid]]          # empty slots score -inf
+    ts += [t for t in (det.mask_logits, det.keypoints) if t is not None]
+    if hasattr(out, "sem_seg_logits"):
+        ts.append(out.sem_seg_logits)
+    return ts
+
+
+def forward_profile(fn, iters: int = 2) -> dict:
+    """torch.profiler over ``iters`` warm calls of ``fn``: wall ms, summed
+    device-kernel ms and the device's busy share per call, launches per
+    call, the 3 kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return dict(wall_ms=wall, device_ms=dev_ms, busy=dev_ms / wall,
+                launches=sum(e.count for e in kernels) / iters,
+                top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3 / iters)
+                     for e in top])
+
+
+def zoo_train_batch(cfg, b: int, h: int, w: int):
+    """``train_batch`` with 17 keypoints per box (visible, inside it) for the
+    keypoint configs."""
+    batch = train_batch(cfg, b, h, w)
+    if cfg.model.keypoint_on:
+        rng = np.random.RandomState(3)
+        boxes = batch.gt.boxes.numpy()
+        u = rng.rand(*boxes.shape[:2], 17, 2)
+        xy = boxes[..., None, :2] + u * (boxes[..., None, 2:] - boxes[..., None, :2])
+        vis = np.full(xy.shape[:-1] + (1,), 2.0)
+        batch.gt.keypoints = torch.from_numpy(np.concatenate([xy, vis], -1).astype(np.float32))
+    return batch
+
+
+def zoo_grad_groups(model):
+    if hasattr(model, "roi_heads"):
+        groups = ["backbone.bottom_up", "backbone.fpn_", "proposal_generator",
+                  "roi_heads.box_head", "roi_heads.box_predictor"]
+        groups += [f"roi_heads.{h}" for h in ("mask_head", "keypoint_head")
+                   if hasattr(model.roi_heads, h)]
+    else:
+        groups = ["backbone.bottom_up", "backbone.fpn_", "backbone.top_block",
+                  "head.cls_subnet", "head.bbox_subnet", "head.cls_score", "head.bbox_pred"]
+        groups += ["head.ctrness"] if model.head.ctrness is not None else []
+    out = {}
+    for prefix in groups:
+        grads = [p.grad.float() for k, p in model.named_parameters()
+                 if k.startswith(prefix) and p.grad is not None]
+        out[prefix] = float(torch.sqrt(sum((g ** 2).sum() for g in grads))) if grads else 0.0
+    return out
+
+
+def phase_zoo(dev):
+    """The detector families through ``model_zoo.get`` at full width (bf16,
+    seeded weights, numpy-drawn scenes): b=2 at 800x1344, 3 warm forwards and
+    ZOO_TIMED timed ones (each synchronised; the median is printed), peak
+    memory; then one ``model(..., train=True)`` loss + ``backward()`` on 20
+    drawn boxes with 64x64 mask patches (and 17 keypoints each) for the
+    Mask, Keypoint, RetinaNet and FCOS configs. Then every other YAML of the
+    zoo: one b=1 forward at 512x832. Fails unless the outputs are finite,
+    every full-width forward keeps detections, every head's gradient is
+    finite and non-zero, K1 launches once per ROI pool of every forward and
+    K1 + K3 once per pool of every loss + backward, and the files the port
+    does not build are exactly the RegNet, Swin and ViTDet ones."""
+    from u2seg_torch import model_zoo
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    k1, k3 = rap.multilevel_roi_align_kernel, rap.multilevel_roi_align_backward
+    (h, w), b = TRAIN_HW, 2
+    # PyTorch's defaults (earlier phases turn TF32 off): the dense heads'
+    # f32 convs take TF32, matmuls stay f32
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    rows, failures = [], []
+    launches = {"k1": 0, "k3": 0}
+
+    def counted(fn, want_k1, want_k3=0, tag=""):
+        k1.launches = k3.launches = 0                     # the main path starts
+        out = fn()
+        torch.cuda.synchronize()
+        got = (k1.launches, k3.launches)                  # the main path ends
+        launches["k1"] += got[0]
+        launches["k3"] += got[1]
+        if got != (want_k1, want_k3):
+            failures.append(f"{tag}: K1/K3 launches {got}, expected {(want_k1, want_k3)}")
+        return out
+
+    t_phase = time.perf_counter()
+    for rel, train in ZOO_FULL:
+        torch.cuda.empty_cache()
+        model, cfg = model_zoo.get(rel, device=dev)
+        zoo_calibrate(model.cfg)
+        pools = pools_per_forward(cfg)
+        rng = np.random.RandomState(4)
+        img = torch.from_numpy(np.stack([scene(rng, h, w) for _ in range(b)])).to(dev)
+        sz = torch.tensor([[h, w]] * b, dtype=torch.int32, device=dev)
+        for _ in range(3):
+            model(img, sz)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(ZOO_TIMED):
+            t0 = time.perf_counter()
+            out = counted(lambda: model(img, sz), pools, tag=f"{rel} forward {i}")
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        finite = all(bool(torch.isfinite(t).all()) for t in output_tensors(out))
+        n_det = int(out.valid.sum())
+        row = dict(config=rel, meta=cfg.model.meta_architecture, ms=float(np.median(times)),
+                   ms_all=times, peak_mib=peak, detections=n_det, k1_per_forward=pools,
+                   profile=forward_profile(lambda: model(img, sz)))
+        prof = row["profile"]
+        msg = (f"[zoo] {rel}: b={b} {h}x{w} bf16 forward {row['ms']:.2f} ms (median of "
+               f"{ZOO_TIMED}; {min(times):.2f}-{max(times):.2f}), peak {peak:.0f} MiB, "
+               f"{n_det} detections, K1 {pools} per forward; profiled {prof['wall_ms']:.1f} ms "
+               f"with {prof['device_ms']:.2f} ms of kernels (busy {prof['busy']:.3f}), "
+               f"{prof['launches']:.0f} launches, top: " + ", ".join(
+                   f"{t['name'][:40]} {t['ms']:.2f}" for t in prof["top"]))
+        if not (finite and n_det > 0):
+            failures.append(f"{rel}: finite={finite} detections={n_det}")
+        if train:
+            model.train()
+            model.zero_grad(set_to_none=True)
+            batch = zoo_train_batch(cfg, b, h, w).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+
+            def loss_and_backward():
+                losses = model(batch.images, batch.image_sizes, gt=batch.gt, train=True,
+                               generator=gen)
+                sum(losses.values()).backward()
+                return losses
+
+            losses = counted(loss_and_backward, pools, pools, tag=f"{rel} train")
+            row["train_ms"] = (time.perf_counter() - t0) * 1e3
+            row["train_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            row["losses"] = {k: float(v.detach()) for k, v in losses.items()}
+            row["grad_norms"] = norms = zoo_grad_groups(model)
+            ok = (all(np.isfinite(v) for v in row["losses"].values())
+                  and all(np.isfinite(v) and v > 0 for v in norms.values()))
+            if not ok:
+                failures.append(f"{rel} train: losses {row['losses']}, gradient norms {norms}")
+            msg += (f"; loss + backward {row['train_ms']:.1f} ms (first call), peak "
+                    f"{row['train_peak_mib']:.0f} MiB, K1/K3 {pools}/{pools}, losses "
+                    + ", ".join(f"{k[5:]} {v:.4f}" for k, v in row["losses"].items())
+                    + "; gradient norms " + ", ".join(f"{k} {v:.2e}" for k, v in norms.items()))
+        log(msg + (" ok" if not failures else " FAIL"))
+        rows.append(row)
+        del model, out
+    full_s = time.perf_counter() - t_phase
+
+    others, skipped = [], []
+    sh, sw = ZOO_SMALL_HW
+    img = torch.from_numpy(scene(np.random.RandomState(5), sh, sw))[None].to(dev)
+    sz = torch.tensor([[sh, sw]], dtype=torch.int32, device=dev)
+    full = {rel for rel, _ in ZOO_FULL}
+    t0 = time.perf_counter()
+    for rel in model_zoo.list_configs():
+        if rel in full:
+            continue
+        try:
+            model, cfg = model_zoo.get(rel, device=dev)
+        except KeyError as e:
+            skipped.append(rel)
+            log(f"[zoo] {rel}: not built ({e})")
+            continue
+        out = counted(lambda: model(img, sz), pools_per_forward(cfg), tag=rel)
+        if not all(bool(torch.isfinite(t).all()) for t in output_tensors(out)):
+            failures.append(f"{rel}: non-finite outputs")
+        others.append(rel)
+        del model, out
+        torch.cuda.empty_cache()
+    others_s = time.perf_counter() - t0
+    built = len(full) + len(others)
+    log(f"[zoo] every other YAML: {len(others)} built, b=1 {sh}x{sw} forward each "
+        f"({others_s:.1f} s with the builds); {built} of {len(model_zoo.list_configs())} "
+        f"zoo files built in all; not built: {', '.join(skipped)}")
+    if tuple(sorted(skipped)) != ZOO_NOT_PORTED or built != 28:
+        failures.append(f"built {built}, skipped {skipped}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[zoo] K1 launches {launches['k1']}, K3 launches {launches['k3']} "
+        f"({full_s:.1f} s for the full-width configs)")
+    if failures:
+        raise AssertionError(f"zoo: {failures}")
+    return dict(rows=rows, others=others, skipped=skipped, launches=launches,
+                full_s=full_s, others_s=others_s)
+
+
+def tiny_zoo_config(meta: str, **heads):
+    """A narrow config of one meta-architecture in f32 with the kernels'
+    pooler: 8 bottleneck blocks, 32-channel FPN, 7 box classes, 5 dense and
+    stuff classes; sampling sizes that take every candidate; the test score
+    thresholds at 0 (``zoo_calibrate``)."""
+    from u2seg_torch.config import Config
+
+    cfg = Config()
+    m = cfg.model
+    m.meta_architecture = meta
+    m.compute_dtype = "float32"
+    m.resnet.depth = 18
+    m.resnet.width_per_group = 8
+    m.resnet.stem_out_channels = 16
+    m.resnet.res2_out_channels = 32
+    m.resnet.norm = "FrozenBN"
+    m.fpn.out_channels = 32
+    m.fpn.norm = ""
+    m.rpn.pre_nms_topk_test = m.rpn.pre_nms_topk_train = 64
+    m.rpn.post_nms_topk_test = m.rpn.post_nms_topk_train = 64
+    m.rpn.batch_size_per_image, m.rpn.positive_fraction = 2048, 0.5
+    rh = m.roi_heads
+    rh.batch_size_per_image, rh.positive_fraction = 256, 0.5
+    rh.pooler_impl = "pallas"
+    rh.num_classes = 7
+    rh.box_head.fc_dim = 64
+    rh.mask_head.conv_dim = 32
+    rh.keypoint_head.conv_dims = (16, 16)
+    rh.detections_per_image = 20
+    m.retinanet.num_classes = m.fcos.num_classes = 5
+    m.sem_seg_head.conv_dim = 32
+    m.sem_seg_head.num_classes = 5
+    rh.name = heads.get("name", "StandardROIHeads")
+    rh.mask_on = m.mask_on = heads.get("mask_on", True)
+    rh.keypoint_on = m.keypoint_on = heads.get("keypoint_on", False)
+    zoo_calibrate(m)
+    return cfg
+
+
+ZOO_CPU_CASES = (("mask_keypoint", "GeneralizedRCNN", {"keypoint_on": True}),
+                 ("cascade_mask", "GeneralizedRCNN", {"name": "CascadeROIHeads"}),
+                 ("retinanet", "RetinaNet", {}), ("fcos", "FCOS", {}),
+                 ("rpn", "ProposalNetwork", {}), ("sem", "SemanticSegmentor", {}))
+
+
+def phase_zoo_cpu(dev):
+    """The six meta-architectures at a tiny config in f32 (TF32 off), on the
+    card (kernels) and on the CPU (plain versions), from the same seeded
+    weights and a b=2 128x128 batch with 3 gt boxes (mask patches, 17
+    keypoints). (a) What follows the trunk on the CPU trunk's features: the
+    ROI heads on the CPU's proposals (detections: validity and classes
+    equal, boxes, scores, mask logits and keypoints rtol 1e-4 with atol 1e-4
+    * max, phase cpu's cascade tolerance), the dense heads' detections (the
+    same), the RPN's proposals (>= 95% within 0.01 px, phase cpu's), the
+    sem-seg logits (1e-3 of max, phase cpu's). (b) The loss dict of one
+    train forward, every candidate sampled: each loss rtol 1e-3 (phase
+    train_cpu's whole-step tolerance)."""
+    from u2seg_torch.models.build import build_model
+    from u2seg_torch.structures.instances import GtInstances
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    hw, b, g = 128, 2, 3
+    images = torch.from_numpy((rng.rand(b, hw, hw, 3) * 255).astype(np.float32))
+    sizes = torch.tensor([[hw, hw], [120, 100]], dtype=torch.int32)
+    xy = rng.rand(b, g, 2) * 60
+    boxes = np.concatenate([xy, xy + rng.rand(b, g, 2) * 50 + 10], -1).astype(np.float32)
+    kp = np.concatenate([boxes[..., None, :2] + rng.rand(b, g, 17, 2) * 10,
+                         np.full((b, g, 17, 1), 2.0)], -1).astype(np.float32)
+    gt = GtInstances(torch.from_numpy(boxes), torch.from_numpy(rng.randint(0, 5, (b, g))),
+                     torch.ones(b, g, dtype=torch.bool),
+                     torch.from_numpy(rng.rand(b, g, 32, 32).astype(np.float32)),
+                     torch.from_numpy(kp))
+    sem = torch.from_numpy(rng.randint(0, 5, (b, hw, hw)))
+    res, failures = {}, []
+
+    def rel_err(a, c):
+        return float((a.float() - c.float()).abs().max()) / max(float(c.float().abs().max()), 1e-30)
+
+    for case, meta, heads in ZOO_CPU_CASES:
+        cfg = tiny_zoo_config(meta, **heads)
+        cpu = build_model(cfg, device="cpu", seed=3)
+        gpu = build_model(cfg, device=dev, seed=3)
+        r = {}
+        with torch.no_grad():
+            fc = cpu.features(images)
+            fg = {k: v.to(dev) for k, v in fc.items()}
+            if meta == "GeneralizedRCNN":
+                p = cpu.proposal_generator(fc, sizes)
+                args = (p.proposal_boxes, p.proposal_scores, p.proposal_valid)
+                c = cpu.roi_heads(fc, *args, sizes)
+                d = gpu.roi_heads(fg, *(a.to(dev) for a in args), sizes.to(dev)).to("cpu")
+            elif meta in ("RetinaNet", "FCOS"):
+                c = cpu._detector[0](fc, sizes)
+                d = gpu._detector[0](fg, sizes.to(dev)).to("cpu")
+            elif meta == "ProposalNetwork":
+                c = cpu.proposal_generator(fc, sizes)
+                d = gpu.proposal_generator(fg, sizes.to(dev))
+                err = (c.proposal_boxes - d.proposal_boxes.cpu()).abs().amax(-1)
+                r["proposal_agree"] = float(((err < 1e-2) & c.proposal_valid).sum()
+                                            / c.proposal_valid.sum())
+            else:
+                c, d = cpu.sem_seg_head(fc), gpu.sem_seg_head(fg).cpu()
+                r["sem_err"] = rel_err(d, c)
+        if meta in ("GeneralizedRCNN", "RetinaNet", "FCOS"):
+            r["equal_valid_classes"] = bool(torch.equal(c.valid, d.valid)
+                                            and torch.equal(c.classes, d.classes))
+            r["detections"] = int(c.valid.sum())
+            for name in ("boxes", "scores", "mask_logits", "keypoints"):
+                if getattr(c, name) is not None:
+                    r[f"{name}_err"] = rel_err(getattr(d, name), getattr(c, name))
+            ok = (r["equal_valid_classes"] and r["detections"] > 0
+                  and all(v <= 1e-4 for k, v in r.items() if k.endswith("_err")))
+        elif meta == "ProposalNetwork":
+            ok = r["proposal_agree"] >= 0.95
+        else:
+            ok = r["sem_err"] <= 1e-3
+
+        losses = {}
+        for name, model in (("cpu", cpu), ("gpu", gpu)):
+            device = next(model.parameters()).device
+            model.train()
+            if meta == "SemanticSegmentor":
+                out = model(images.to(device), sizes.to(device), sem_seg_gt=sem.to(device),
+                            train=True)
+            else:
+                out = model(images.to(device), sizes.to(device), gt=gt.to(device), train=True,
+                            generator=torch.Generator(device=device).manual_seed(0))
+            losses[name] = {k: float(v.detach()) for k, v in out.items()}
+        r["loss_err"] = max(abs(losses["gpu"][k] / losses["cpu"][k] - 1) for k in losses["cpu"])
+        r["losses"] = sorted(losses["cpu"])
+        ok = ok and r["loss_err"] <= 1e-3 and sorted(losses["gpu"]) == r["losses"]
+        log(f"[zoo_cpu] {case} ({meta}): " + ", ".join(
+            f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()
+            if k != "losses") + f"; losses {', '.join(r['losses'])} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(case)
+        res[case] = r
+        del cpu, gpu
+    if failures:
+        raise AssertionError(f"zoo_cpu: card and CPU disagree on {failures}: {res}")
+    return res
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
-                  "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu"]
+                  "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
+                  "zoo", "zoo_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -3370,6 +3774,12 @@ def main():
         torch.cuda.empty_cache()
     if "pseudo_cpu" in phases:
         report["pseudo_cpu"] = phase_pseudo_cpu(dev)
+    if "zoo" in phases:
+        torch.cuda.empty_cache()
+        report["zoo"] = phase_zoo(dev)
+        torch.cuda.empty_cache()
+    if "zoo_cpu" in phases:
+        report["zoo_cpu"] = phase_zoo_cpu(dev)
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:
@@ -3381,12 +3791,13 @@ def main():
                  report["train_net"]["launches"], report["train_net_cpu"]["launches"]]
         dataset_launches = (report["dataset_eval"]["launches"]
                             + report["train_net"]["eval_k1"])
+        zoo = report["zoo"]["launches"]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
-                        + tr["forward_launches"] + sum(c["k1"] for c in loops))
-        bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops)
+                        + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"])
+        bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
                tr["backward_launches"], *(c[k] for c in loops for k in ("k1", "k3")),
-               k4["launches"], *k5["launches"].values()) < 1:
+               zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values()) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes
         report["record"] = {"kernels": [{

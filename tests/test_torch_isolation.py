@@ -63,7 +63,9 @@ def test_no_source_imports_jax_or_the_jax_package():
             "evaluation/testing.py", "structures/masks.py", "data/mapper.py",
             "tools/train_net.py", "tools/plain_train_net.py", "tools/benchmark.py",
             "tools/convert_weights.py", "pseudo/dino.py", "pseudo/kmeans.py",
-            "pseudo/uslt.py", "pseudo/assembly.py", "tools/generate_pseudo_labels.py"} <= rel
+            "pseudo/uslt.py", "pseudo/assembly.py", "tools/generate_pseudo_labels.py",
+            "models/rcnn.py", "models/dense_detector.py", "models/keypoint_head.py",
+            "structures/keypoints.py", "models/tta.py", "model_zoo.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -135,6 +137,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(Config())
+    from u2seg_torch import model_zoo
+
+    for rel in model_zoo.list_configs():
+        if "regnet" in rel or "swin" in rel or "vitdet" in rel:
+            continue
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(model_zoo.get_config(rel))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_zoo.get("COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):

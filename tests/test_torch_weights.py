@@ -105,3 +105,35 @@ def test_seeded_init_is_deterministic():
     assert abs(a[w].std().item() / np.sqrt(2.0 / fan_out) - 1) < 0.1
     assert abs(a["roi_heads.box_predictor.0.cls_score.weight"].std().item() / 0.01 - 1) < 0.1
     assert abs(a["roi_heads.box_predictor.0.bbox_pred.weight"].std().item() / 0.001 - 1) < 0.1
+
+    # every meta-architecture and its new modules: same seed, same numbers
+    for meta, extra in (("GeneralizedRCNN", {"keypoint_on": True, "num_conv": 2}),
+                        ("ProposalNetwork", {}), ("SemanticSegmentor", {}),
+                        ("RetinaNet", {}), ("FCOS", {})):
+        cfg = tiny("StandardROIHeads", "GN")
+        cfg.model.meta_architecture = meta
+        cfg.model.retinanet.num_classes = cfg.model.fcos.num_classes = 5
+        if extra:
+            cfg.model.keypoint_on = cfg.model.roi_heads.keypoint_on = True
+            cfg.model.roi_heads.keypoint_head.conv_dims = (16, 16)
+            cfg.model.roi_heads.box_head.num_conv = 2
+            cfg.model.roi_heads.box_head.norm = "GN"
+        a = build_model(cfg, device="cpu", seed=0).state_dict()
+        b = build_model(cfg, device="cpu", seed=0).state_dict()
+        c = build_model(cfg, device="cpu", seed=1).state_dict()
+        assert sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a), meta
+        moved = [k for k in a if k.endswith("weight") and not torch.equal(a[k], c[k])]
+        assert len(moved) > 10, meta
+        if meta == "GeneralizedRCNN":
+            kp = a["roi_heads.keypoint_head.conv_fcn1.weight"]      # kaiming fan-out
+            assert abs(kp.std().item() / np.sqrt(2.0 / (16 * 9)) - 1) < 0.1
+            gn = a["roi_heads.box_head.conv1.norm.weight"]
+            assert torch.equal(gn, torch.ones_like(gn))
+        if meta in ("RetinaNet", "FCOS"):                 # normal(0.01), prior bias
+            assert abs(a["head.cls_subnet.0.weight"].std().item() / 0.01 - 1) < 0.1
+            assert torch.allclose(a["head.cls_score.bias"],
+                                  torch.full((5 * (9 if meta == "RetinaNet" else 1),),
+                                             -float(np.log(99.0))))
+            p6 = a["backbone.top_block.p6.weight"]          # glorot uniform
+            lim = np.sqrt(6.0 / (2 * 32 * 9))
+            assert float(p6.abs().max()) <= lim and float(p6.abs().max()) > 0.9 * lim

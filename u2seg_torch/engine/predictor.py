@@ -90,6 +90,13 @@ class DefaultPredictor:
         from u2seg_torch.data import transforms as T
         from u2seg_torch.models.build import build_model
 
+        name = cfg.model.meta_architecture
+        if name != "PanopticFPN":
+            # the JAX predictor's forward passes combine=False, which only
+            # PanopticFPN takes, and renders panoptic outputs
+            raise ValueError(
+                f"meta architecture {name!r} does not run through the predictor: "
+                "only PanopticFPN does, as in the JAX package")
         self.cfg = cfg
         if model is None:
             model = build_model(cfg, device=device)

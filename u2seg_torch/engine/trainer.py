@@ -55,9 +55,23 @@ class TrainState:
         return self.optimizer.param_groups[0]["count"]
 
 
+def check_trainable(cfg: Config) -> None:
+    """Only PanopticFPN trains through the trainer, as in the JAX package
+    (whose ``create_train_state`` builds a PanopticFPN whatever the config
+    names): the step feeds it ``sem_seg_gt``, which the other
+    meta-architectures do not take."""
+    name = cfg.model.meta_architecture
+    if name != "PanopticFPN":
+        raise ValueError(
+            f"meta architecture {name!r} does not train through the trainer: "
+            "only PanopticFPN does, as in the JAX package")
+
+
 def create_train_state(cfg: Config, device=None, seed: int = 0) -> TrainState:
     """Seeded model in training mode on ``device`` (``cuda`` unless the caller
-    names another) and its optimizer."""
+    names another) and its optimizer. Raises ``ValueError`` for a
+    meta-architecture other than PanopticFPN (``check_trainable``)."""
+    check_trainable(cfg)
     model = build_model(cfg, device=device, seed=seed).train()
     return TrainState(model, build_optimizer(cfg.solver, model))
 

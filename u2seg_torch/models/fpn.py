@@ -2,8 +2,13 @@
 
 detectron2's layout: the backbone module owns ``bottom_up`` and the
 ``fpn_lateral{2..5}`` / ``fpn_output{2..5}`` convs (each with ``.norm``).
-Top-down: lateral 1x1 + nearest 2x upsample of the coarser result, 3x3
-output conv; p6 is a stride-2 max-pool (kernel 1) of p5.
+Top-down: lateral 1x1 + nearest 2x upsample of the coarser result (summed,
+or with ``fuse_type="avg"`` averaged), 3x3 output conv. The top block makes
+the next level from the coarsest output: ``maxpool`` a stride-2 max-pool
+(kernel 1), ``p6p7`` (RetinaNet, FCOS) ``p6 = conv3x3/2(p5)`` and ``p7 =
+conv3x3/2(relu(p6))`` as ``top_block.p6`` / ``.p7``. Those two convs run in
+f32 whatever the compute dtype: the JAX package gives them no ``dtype``, so
+flax promotes their bf16 input to the f32 of their parameters.
 """
 from __future__ import annotations
 
@@ -27,16 +32,31 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
+class LastLevelP6P7(nn.Module):
+    """p6 and p7 from the coarsest FPN output, in f32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.p6 = Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.p7 = Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor):
+        p6 = self.p6(x.float())
+        return p6, self.p7(F.relu(p6))
+
+
 class FPN(nn.Module):
-    """ResNet bottom-up + FPN; returns {"p2".."p6"} NCHW maps."""
+    """ResNet bottom-up + FPN; returns {"p<l>": NCHW map} from the finest
+    input level to the top block's."""
 
     def __init__(self, resnet_cfg: ResNetConfig, cfg: FPNConfig):
         super().__init__()
-        if cfg.top_block != "maxpool" or cfg.fuse_type != "sum":
-            raise NotImplementedError(
-                "the port builds the max-pool top block with sum fusion")
+        if cfg.top_block not in ("maxpool", "p6p7") or cfg.fuse_type not in ("sum", "avg"):
+            raise ValueError(f"unknown FPN top block {cfg.top_block!r} or "
+                             f"fuse type {cfg.fuse_type!r}")
         self.bottom_up = ResNet(resnet_cfg)
         self.in_features = tuple(cfg.in_features)
+        self.fuse_avg = cfg.fuse_type == "avg"
         chans = feature_channels(resnet_cfg)
         use_bias = cfg.norm == ""
         for name in self.in_features:
@@ -47,6 +67,8 @@ class FPN(nn.Module):
             self.add_module(f"fpn_output{lvl}", Conv2d(
                 cfg.out_channels, cfg.out_channels, 3, padding=1,
                 bias=use_bias, norm=get_norm(cfg.norm, cfg.out_channels)))
+        if cfg.top_block == "p6p7":
+            self.top_block = LastLevelP6P7(cfg.out_channels)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         bottom_up = self.bottom_up(x)
@@ -57,8 +79,13 @@ class FPN(nn.Module):
             lateral = getattr(self, f"fpn_lateral{lvl}")(bottom_up[name])
             if prev is not None:
                 lateral = lateral + _upsample2x(prev)
+                if self.fuse_avg:
+                    lateral = lateral / 2.0
             prev = lateral
             out[f"p{lvl}"] = getattr(self, f"fpn_output{lvl}")(lateral)
-        last = f"p{FEATURE_STRIDES[self.in_features[-1]].bit_length() - 1}"
-        out[f"p{int(last[1:]) + 1}"] = out[last][:, :, ::2, ::2]
+        top = FEATURE_STRIDES[self.in_features[-1]].bit_length() - 1
+        if hasattr(self, "top_block"):
+            out[f"p{top + 1}"], out[f"p{top + 2}"] = self.top_block(out[f"p{top}"])
+        else:
+            out[f"p{top + 1}"] = out[f"p{top}"][:, :, ::2, ::2]
         return {k: out[k] for k in sorted(out, key=lambda k: int(k[1:]))}

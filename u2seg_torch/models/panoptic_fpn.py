@@ -15,23 +15,12 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch import nn
 
 from u2seg_torch.config import ModelConfig
-from u2seg_torch.models.backbone import build_backbone
-from u2seg_torch.models.roi_heads import CascadeROIHeads, StandardROIHeads
-from u2seg_torch.models.rpn import RPN
+from u2seg_torch.models.rcnn import GeneralizedRCNN, check_mode
 from u2seg_torch.models.sem_seg import SemSegFPNHead
-from u2seg_torch.ops.consts import device_table
 from u2seg_torch.ops.mask_paste import paste_masks
 from u2seg_torch.structures.instances import Detections, GtInstances
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    return _DTYPES[name]
 
 
 @dataclasses.dataclass
@@ -46,42 +35,19 @@ class PanopticOutput:
     seg_instance_idx: Optional[torch.Tensor] = None  # (B, S) int32
 
 
-class PanopticFPN(nn.Module):
+class PanopticFPN(GeneralizedRCNN):
+    """GeneralizedRCNN + the sem-seg head and the panoptic fusion."""
+
     def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        self.cfg = cfg
-        self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        ch = cfg.fpn.out_channels
-        self.backbone = build_backbone(cfg)
-        self.proposal_generator = RPN(cfg.rpn, cfg.anchors, ch)
-        heads = (CascadeROIHeads if cfg.roi_heads.name == "CascadeROIHeads"
-                 else StandardROIHeads)
-        self.roi_heads = heads(cfg.roi_heads, ch, self.compute_dtype)
-        self.sem_seg_head = SemSegFPNHead(cfg.sem_seg_head, ch)
-
-    def normalize(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) raw RGB -> normalized NCHW (channels-last memory) in
-        the compute dtype."""
-        mean = device_table(self.cfg.pixel_mean, images.dtype, images.device)
-        std = device_table(self.cfg.pixel_std, images.dtype, images.device)
-        x = ((images - mean) / std).to(self.compute_dtype)
-        return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-
-    def features(self, images: torch.Tensor):
-        feats = self.backbone(self.normalize(images))
-        # the pooler reads NHWC views of these maps
-        return {k: v.contiguous(memory_format=torch.channels_last)
-                for k, v in feats.items()}
+        super().__init__(cfg)
+        self.sem_seg_head = SemSegFPNHead(cfg.sem_seg_head, cfg.fpn.out_channels)
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
                 gt: Optional[GtInstances] = None,
                 sem_seg_gt: Optional[torch.Tensor] = None,
                 train: bool = False, combine: bool = False,
                 generator: Optional[torch.Generator] = None):
-        if train != self.training:
-            raise ValueError(
-                f"forward(train={train}) on a model whose training mode is "
-                f"{self.training}: call model.train() / model.eval() first")
+        check_mode(self, train)
         if train:
             return self.losses(images, image_sizes, gt, sem_seg_gt, generator)
         with torch.no_grad():
@@ -102,13 +68,8 @@ class PanopticFPN(nn.Module):
         if sem_seg_gt is not None:
             out.update(self.sem_seg_head.losses(self.sem_seg_head(features),
                                                 sem_seg_gt))
-        rpn = self.proposal_generator(features, image_sizes, gt=gt, train=True,
-                                      generator=generator)
-        out.update(rpn.losses)
-        out.update(self.roi_heads(
-            features, rpn.proposal_boxes, rpn.proposal_scores,
-            rpn.proposal_valid, image_sizes, gt=gt, train=True,
-            generator=generator))
+        out.update(super().losses_from_features(features, image_sizes, gt,
+                                                generator=generator))
         return out
 
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,

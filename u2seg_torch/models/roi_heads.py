@@ -1,12 +1,20 @@
 """ROI heads (counterpart of ``u2seg_tpu/models/roi_heads.py``).
 
-Box heads, the class-select mask head, ``fast_rcnn_inference``, proposal
-labelling and sampling, mask targets from box-relative patches, and the
-Standard / Cascade heads with their inference and training branches (the
-keypoint branch is not ported). Pooled features travel as ``(R, S, S, C)``, as in
-the JAX package; the heads flatten them the NCHW way (C, S, S) so d2's
-``fc1`` weight layout holds. Module names are detectron2's
-(``box_head.{k}.fc1``, ``box_predictor.{k}.cls_score``, ``mask_head.deconv``).
+Box heads (convs with their norm, then FCs), the class-select mask head,
+``fast_rcnn_inference``, proposal labelling and sampling, mask targets from
+box-relative patches, and the Standard / Cascade heads with their inference
+and training branches for boxes, masks and keypoints. Pooled features travel
+as ``(R, S, S, C)``, as in the JAX package; the heads flatten them the NCHW
+way (C, S, S) so d2's ``fc1`` weight layout holds. Module names are
+detectron2's (``box_head.{k}.conv1.norm``, ``box_head.{k}.fc1``,
+``box_predictor.{k}.cls_score``, ``mask_head.mask_fcn1.norm``,
+``mask_head.deconv``, ``keypoint_head.conv_fcn1``).
+
+One departure from the JAX package: its mask head takes a ``norm`` and never
+applies it (its convs keep their bias). The port's applies it as detectron2
+does (no conv bias, then the norm, then relu), so the GN and SyncBN mask
+heads of the zoo load detectron2's weights; with ``norm=""`` the two heads
+are the same function.
 """
 from __future__ import annotations
 
@@ -20,9 +28,13 @@ from torch import nn
 from u2seg_torch.config import ROIHeadsConfig
 from u2seg_torch.models import matcher, sampling
 from u2seg_torch.models.fpn import FPN_STRIDES
+from u2seg_torch.models.keypoint_head import (KRCNNConvDeconvUpsampleHead,
+                                              keypoint_rcnn_inference,
+                                              keypoint_rcnn_loss)
 from u2seg_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from u2seg_torch.ops import losses as L
 from u2seg_torch.ops.nms import batched_nms, topk_stable
+from u2seg_torch.ops.norms import get_norm
 from u2seg_torch.ops.roi_align import multilevel_roi_align, roi_align
 from u2seg_torch.ops.roi_align_ml import (multilevel_roi_align_kernel,
                                           multilevel_roi_align_train)
@@ -48,22 +60,31 @@ def scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 class FastRCNNConvFCHead(nn.Module):
-    """flatten + FCs (u2seg: 2 x FC-1024) on (R, S, S, C) input."""
+    """3x3 convs (each: bias only without a norm, then the norm, then relu),
+    flatten, FCs (u2seg: 2 x FC-1024) on (R, S, S, C) input."""
 
     def __init__(self, in_channels: int, resolution: int, num_conv: int = 0,
-                 num_fc: int = 2, fc_dim: int = 1024):
+                 num_fc: int = 2, fc_dim: int = 1024, conv_dim: int = 256,
+                 norm: str = ""):
         super().__init__()
-        if num_conv:
-            raise NotImplementedError("box-head convs are not ported yet")
-        self.num_fc = num_fc
-        dim = in_channels * resolution * resolution
+        self.num_conv, self.num_fc = num_conv, num_fc
+        ch = in_channels
+        for i in range(num_conv):
+            self.add_module(f"conv{i + 1}", Conv2d(
+                ch, conv_dim, 3, padding=1, bias=not norm,
+                norm=get_norm(norm, conv_dim), activation=F.relu))
+            ch = conv_dim
+        dim = ch * resolution * resolution
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", Linear(dim, fc_dim))
             dim = fc_dim
         self.out_dim = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)   # NCHW flatten (d2 fc1)
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.num_conv):
+            x = getattr(self, f"conv{i + 1}")(x)
+        x = x.reshape(x.shape[0], -1)                       # NCHW flatten (d2 fc1)
         for i in range(self.num_fc):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))
         return x
@@ -91,12 +112,12 @@ class MaskRCNNConvUpsampleHead(nn.Module):
     def __init__(self, in_channels: int, num_classes: int, num_conv: int = 4,
                  conv_dim: int = 256, norm: str = ""):
         super().__init__()
-        if norm:
-            raise NotImplementedError("the port's mask head has no norm yet")
         self.num_conv = num_conv
         ch = in_channels
         for i in range(num_conv):
-            self.add_module(f"mask_fcn{i + 1}", Conv2d(ch, conv_dim, 3, padding=1))
+            self.add_module(f"mask_fcn{i + 1}", Conv2d(
+                ch, conv_dim, 3, padding=1, bias=not norm,
+                norm=get_norm(norm, conv_dim), activation=F.relu))
             ch = conv_dim
         self.deconv = ConvTranspose2d(ch, conv_dim, 2, stride=2)
         self.predictor = Conv2d(conv_dim, num_classes, 1)
@@ -106,7 +127,7 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         """x: (N, S, S, C) -> f32 mask logits (N, 2S, 2S, 1 | num_classes)."""
         x = x.permute(0, 3, 1, 2)
         for i in range(self.num_conv):
-            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
+            x = getattr(self, f"mask_fcn{i + 1}")(x)
         x = F.relu(self.deconv(x))
         w = self.predictor.weight[:, :, 0, 0].to(x.dtype)   # (classes, Cin)
         bias = self.predictor.bias.to(x.dtype)
@@ -266,8 +287,8 @@ def fast_rcnn_inference(
 
 
 class StandardROIHeads(nn.Module):
-    """Box + mask branches with separate poolers. ``forward`` returns
-    ``Detections``, or with ``train`` the loss dict."""
+    """Box, mask and keypoint branches with separate poolers. ``forward``
+    returns ``Detections``, or with ``train`` the loss dict."""
 
     def __init__(self, cfg: ROIHeadsConfig, in_channels: int,
                  compute_dtype: torch.dtype = torch.float32,
@@ -283,12 +304,14 @@ class StandardROIHeads(nn.Module):
                 in_channels, 1 if m.cls_agnostic_mask else cfg.num_classes,
                 m.num_conv, m.conv_dim, m.norm)
         if cfg.keypoint_on:
-            raise NotImplementedError("the keypoint head is not ported yet")
+            k = cfg.keypoint_head
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(
+                in_channels, k.num_keypoints, k.conv_dims)
 
     def _new_box_head(self, in_channels):
         b = self.cfg.box_head
         return FastRCNNConvFCHead(in_channels, b.pooler_resolution, b.num_conv,
-                                  b.num_fc, b.fc_dim)
+                                  b.num_fc, b.fc_dim, b.conv_dim, b.norm)
 
     def _build_box_branch(self, in_channels):
         c = self.cfg
@@ -416,6 +439,53 @@ class StandardROIHeads(nn.Module):
         num_fg = torch.clamp(mvalid.sum(), min=1.0)
         return {"loss_mask": (per_roi * mvalid).sum() / num_fg}
 
+    def _keypoint_loss(self, features, proposals: SampledProposals,
+                       gt: GtInstances):
+        """Foreground proposals whose matched gt has a visible keypoint inside
+        the proposal box, the first ``mask_fg_capacity`` of them per image
+        (a stable sort, wanted first), through the keypoint head."""
+        c = self.cfg
+        k = c.keypoint_head
+        b = proposals.valid.shape[0]
+        boxes = proposals.boxes
+        kp_all = _take(gt.keypoints, proposals.gt_idx)           # (B, S, Kp, 3)
+        x, y = kp_all[..., 0], kp_all[..., 1]
+        inside = ((x >= boxes[..., None, 0]) & (x <= boxes[..., None, 2])
+                  & (y >= boxes[..., None, 1]) & (y <= boxes[..., None, 3])
+                  & (kp_all[..., 2] > 0))
+        want = proposals.is_fg & inside.any(-1)
+        order = torch.sort((~want).to(torch.int8), dim=1, stable=True)[1]
+        kidx = order[:, :self.mask_fg_capacity]
+        live = torch.gather(want, 1, kidx)
+        kboxes = _take(boxes, kidx)
+        pooled = self._pool(features, kboxes, k.pooler_resolution,
+                            k.pooler_sampling_ratio, train=True)
+        logits = self.keypoint_head(pooled.to(self.compute_dtype))
+        loss = keypoint_rcnn_loss(
+            logits, _take(kp_all, kidx).flatten(0, 1), kboxes.reshape(-1, 4),
+            live.reshape(-1), normalizer=k.normalizer)
+        return {"loss_keypoint": loss * k.loss_weight}
+
+    def _keypoint_inference(self, features, det: Detections) -> Detections:
+        k = self.cfg.keypoint_head
+        b, n = det.valid.shape
+        pooled = self._pool(features, det.boxes, k.pooler_resolution,
+                            k.pooler_sampling_ratio)
+        logits = self.keypoint_head(pooled.to(self.compute_dtype))
+        kp = keypoint_rcnn_inference(logits, det.boxes.reshape(-1, 4))
+        return dataclasses.replace(det, keypoints=kp.reshape(b, n, *kp.shape[1:]))
+
+    def _extra_losses(self, features, proposals: SampledProposals,
+                      gt: GtInstances) -> Dict[str, torch.Tensor]:
+        """The mask and keypoint losses on the first stage's samples."""
+        c = self.cfg
+        out = {}
+        if c.mask_on and gt.masks is not None:
+            out.update(self._mask_loss(features, proposals, gt))
+        if c.keypoint_on and gt.keypoints is not None:
+            out.update(self._keypoint_loss(features, proposals, gt))
+        return out
+
     def _sample(self, rpn_boxes, rpn_scores, rpn_valid, gt, iou, generator):
         c = self.cfg
         boxes, _, valid = add_ground_truth_to_proposals(
@@ -437,8 +507,7 @@ class StandardROIHeads(nn.Module):
         out = self._box_losses(scores, deltas, proposals,
                                _take(gt.boxes, proposals.gt_idx),
                                c.bbox_reg_weights)
-        if c.mask_on and gt.masks is not None:
-            out.update(self._mask_loss(features, proposals, gt))
+        out.update(self._extra_losses(features, proposals, gt))
         return out
 
     def forward(self, features, rpn_boxes, rpn_scores, rpn_valid,
@@ -456,6 +525,8 @@ class StandardROIHeads(nn.Module):
             c.nms_thresh_test, c.detections_per_image)
         if c.mask_on:
             det = self._mask_inference(features, det)
+        if c.keypoint_on:
+            det = self._keypoint_inference(features, det)
         return det
 
 
@@ -502,8 +573,7 @@ class CascadeROIHeads(StandardROIHeads):
             out.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
             if stage < num_stages - 1:
                 boxes = self._refine(deltas, boxes, stage, image_sizes)
-        if c.mask_on and gt.masks is not None:
-            out.update(self._mask_loss(features, proposals, gt))
+        out.update(self._extra_losses(features, proposals, gt))
         return out
 
     def forward_box(self, features, rpn_boxes, image_sizes):

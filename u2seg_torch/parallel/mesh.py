@@ -16,7 +16,6 @@ import torch
 from u2seg_torch.engine.trainer import Batch
 from u2seg_torch.models.build import resolve_device
 from u2seg_torch.parallel import comm
-from u2seg_torch.structures.instances import GtInstances
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +45,6 @@ def shard_batch(mesh: Mesh, batch: Batch) -> Batch:
     ``Batch``, on the rank's device."""
     n = local_batch_size(batch.images.shape[0], mesh)
     rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
-    gt = batch.gt
-    local = Batch(batch.images[rows], batch.image_sizes[rows],
-                  GtInstances(gt.boxes[rows], gt.classes[rows], gt.valid[rows],
-                              None if gt.masks is None else gt.masks[rows]),
+    local = Batch(batch.images[rows], batch.image_sizes[rows], batch.gt[rows],
                   batch.sem_seg[rows])
     return local.to(mesh.device)

@@ -21,6 +21,7 @@ class Detections:
     classes: (B, K) int32
     valid:   (B, K) bool
     mask_logits: (B, K, M, M) optional per-detection mask logits (M=28).
+    keypoints: (B, K, Kp, 4) optional keypoints: x, y, heatmap logit, prob.
     """
 
     boxes: torch.Tensor
@@ -28,6 +29,12 @@ class Detections:
     classes: torch.Tensor
     valid: torch.Tensor
     mask_logits: Optional[torch.Tensor] = None
+    keypoints: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "Detections":
+        return Detections(*(None if t is None else t.to(device) for t in (
+            self.boxes, self.scores, self.classes, self.valid,
+            self.mask_logits, self.keypoints)))
 
 
 @dataclasses.dataclass
@@ -39,19 +46,27 @@ class GtInstances:
     valid:   (B, N) bool.
     masks:   (B, N, P, P) optional masks cropped to their gt box (patches),
              values in [0, 1].
+    keypoints: (B, N, Kp, 3) optional keypoints: x, y, visibility (> 0 is
+             visible).
     """
 
     boxes: torch.Tensor
     classes: torch.Tensor
     valid: torch.Tensor
     masks: Optional[torch.Tensor] = None
+    keypoints: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.boxes.shape[-2]
 
     def to(self, device) -> "GtInstances":
-        return GtInstances(
-            self.boxes.to(device), self.classes.to(device),
-            self.valid.to(device),
-            None if self.masks is None else self.masks.to(device))
+        return GtInstances(*(None if t is None else t.to(device)
+                             for t in (self.boxes, self.classes, self.valid,
+                                       self.masks, self.keypoints)))
+
+    def __getitem__(self, rows) -> "GtInstances":
+        """The images ``rows`` of the batch (a slice or an index tensor)."""
+        return GtInstances(*(None if t is None else t[rows]
+                             for t in (self.boxes, self.classes, self.valid,
+                                       self.masks, self.keypoints)))

@@ -125,7 +125,9 @@ def _main(args):
         return results
 
     from u2seg_torch.engine.train_loop import DefaultTrainer
+    from u2seg_torch.engine.trainer import check_trainable
 
+    check_trainable(cfg)                        # before the data is read
     trainer = DefaultTrainer(cfg, build_train_loader(cfg), device=args.device,
                              sharded_loader=True)
     trainer.register_hooks(trainer.build_hooks())

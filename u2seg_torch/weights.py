@@ -5,15 +5,21 @@ the JAX package's initializer for that layer (biases zero, norms identity).
 
 ``from_jax(params, batch_stats)`` takes the JAX package's variable trees as
 nested dicts of arrays and returns the port's ``state_dict`` (detectron2
-names). It inverts ``convert_d2_panoptic_fpn`` of the JAX package's
-checkpoint module, including its three layout changes:
+names), for any of the six meta-architectures. For PanopticFPN it inverts
+``convert_d2_panoptic_fpn`` of the JAX package's checkpoint module. The
+layout changes:
 
-- the box head's ``fc1`` rows: the JAX heads flatten pooled (R, 7, 7, C) in
-  NHWC order, the port (like d2) in NCHW order;
-- the mask deconv kernel: flax applies ``ConvTranspose`` unflipped, torch
-  flips it, so the spatial axes are reversed;
-- the FPN norms: flax names them ``BatchNorm_{i}`` in build order, which is
-  lateral then output for res5, res4, res3, res2.
+- the box head's ``fc1`` rows: the JAX heads flatten their (R, S, S, C)
+  input in NHWC order, the port (like d2) in NCHW order;
+- the transposed-conv kernels (the mask head's ``deconv``, the keypoint
+  head's ``score_lowres``): flax applies them unflipped, torch flips them,
+  so the spatial axes are reversed;
+- the norms: flax names them ``BatchNorm_{i}`` (``FrozenBatchNorm_{i}``,
+  ``GroupNorm_{i}``) in build order: in the FPN lateral then output for
+  res5 down to res2, in a box head per conv, in a dense head the class
+  tower's then the box tower's;
+- the dense heads' towers are detectron2 Sequentials: a conv at every
+  second slot, or every third with a norm between conv and relu.
 
 ``dino_from_jax(params)`` does the same for the JAX ``DinoViT`` tree: it
 inverts ``convert_dino_vit`` (the patch kernel (p, p, 3, D) -> (D, 3, p, p),
@@ -52,6 +58,8 @@ def _fans(weight: torch.Tensor, transposed: bool = False):
 def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     """Draw every weight with the JAX package's initializer, from a CPU
     generator seeded with ``seed`` (same numbers on any machine)."""
+    from u2seg_torch.models.dense_detector import DenseHead
+
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, mod in model.named_modules():
@@ -66,12 +74,13 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 continue
             w = mod.weight
             fan_in, fan_out = _fans(w, isinstance(mod, nn.ConvTranspose2d))
-            if name.startswith("proposal_generator.") or name.endswith(
+            if name.startswith(("proposal_generator.", "head.")) or name.endswith(
                     ("cls_score", "sem_seg_head.predictor")):
+                # RPN, dense heads, classifiers: normal(0.01)
                 w.copy_(torch.randn(w.shape, generator=g) * 0.01)
             elif name.endswith(("bbox_pred", "mask_head.predictor")):
                 w.copy_(torch.randn(w.shape, generator=g) * 0.001)
-            elif ".fpn_" in name or isinstance(mod, Linear):
+            elif ".fpn_" in name or ".top_block." in name or isinstance(mod, Linear):
                 # glorot / fan_avg uniform
                 lim = math.sqrt(6.0 / (fan_in + fan_out))
                 w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * lim)
@@ -81,6 +90,11 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                         * math.sqrt(2.0 / fan_out))
             if mod.bias is not None:
                 mod.bias.zero_()
+        for mod in model.modules():
+            if isinstance(mod, DenseHead):
+                # the classifier starts at the prior probability
+                p = mod.prior_prob
+                mod.cls_score.bias.fill_(-math.log((1 - p) / p))
     return model
 
 
@@ -94,10 +108,12 @@ def _np(x) -> np.ndarray:
 
 # convert_d2_panoptic_fpn reorders fc1 rows for a 7 x 7 pooled input
 _FC1_RESOLUTION = 7
+_NORM_KINDS = ("BatchNorm", "FrozenBatchNorm", "GroupNorm")
 
 
 def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX variable trees -> the port's ``state_dict`` (CPU f32 tensors)."""
+    """JAX variable trees of any of the six meta-architectures -> the port's
+    ``state_dict`` (CPU f32 tensors)."""
     sd: Dict[str, np.ndarray] = {}
 
     def conv(dst, tree):
@@ -105,24 +121,41 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
         if "bias" in tree:
             sd[dst + ".bias"] = _np(tree["bias"])
 
-    def bn(dst, ptree, stree):
-        sd[dst + ".weight"] = _np(ptree["scale"])
-        sd[dst + ".bias"] = _np(ptree["bias"])
-        sd[dst + ".running_mean"] = _np(stree["mean"])
-        sd[dst + ".running_var"] = _np(stree["var"])
+    def deconv(dst, tree):
+        # flax applies the kernel unflipped, torch's transposed conv flipped
+        sd[dst + ".weight"] = np.ascontiguousarray(
+            _np(tree["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        sd[dst + ".bias"] = _np(tree["bias"])
+
+    def norm(dst, ptree, stree, i) -> bool:
+        """The ``i``-th auto-named norm of a flax scope (BN, FrozenBN or GN)
+        -> ``dst``; False when the scope has none."""
+        for kind in _NORM_KINDS:
+            key = f"{kind}_{i}"
+            if key in ptree:
+                sd[dst + ".weight"] = _np(ptree[key]["scale"])
+                sd[dst + ".bias"] = _np(ptree[key]["bias"])
+                if kind != "GroupNorm":
+                    sd[dst + ".running_mean"] = _np(stree[key]["mean"])
+                    sd[dst + ".running_var"] = _np(stree[key]["var"])
+                return True
+        return False
 
     def fc(dst, tree):
         sd[dst + ".weight"] = _np(tree["kernel"]).T
         sd[dst + ".bias"] = _np(tree["bias"])
 
+    def scope(tree, *path):
+        for k in path:
+            tree = tree.get(k, {})
+        return tree
+
     # backbone.bottom_up
     bp = params["backbone"]["bottom_up"]
-    bs = batch_stats.get("backbone", {}).get("bottom_up", {})
+    bs = scope(batch_stats, "backbone", "bottom_up")
     pre = "backbone.bottom_up"
     conv(f"{pre}.stem.conv1", bp["stem"]["conv1"])
-    if "BatchNorm_0" in bp["stem"]:
-        bn(f"{pre}.stem.conv1.norm", bp["stem"]["BatchNorm_0"],
-           bs["stem"]["BatchNorm_0"])
+    norm(f"{pre}.stem.conv1.norm", bp["stem"], bs.get("stem", {}), 0)
     for key, blk in bp.items():
         m = re.fullmatch(r"(res\d)_(\d+)", key)
         if not m:
@@ -131,14 +164,13 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
         names = ["conv1", "conv2", "conv3"] + (["shortcut"] if "shortcut" in blk else [])
         for ci, cname in enumerate(names):
             conv(f"{dst}.{cname}", blk[cname])
-            if f"BatchNorm_{ci}" in blk:
-                bn(f"{dst}.{cname}.norm", blk[f"BatchNorm_{ci}"],
-                   bs[key][f"BatchNorm_{ci}"])
+            norm(f"{dst}.{cname}.norm", blk, bs.get(key, {}), ci)
 
-    # backbone FPN: norms numbered in build order (res5 lateral, output, ...)
+    # backbone FPN: norms numbered in build order (res5 lateral, output, ...);
+    # p6 / p7 of the RetinaNet top block
     fp = params["backbone"]["fpn"]
-    fs = batch_stats.get("backbone", {}).get("fpn", {})
-    bn_idx = 0
+    fs = scope(batch_stats, "backbone", "fpn")
+    n_idx = 0
     for stage in ("res5", "res4", "res3", "res2"):
         if f"lateral_{stage}" not in fp:
             continue
@@ -146,57 +178,91 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
         for kind, dst in (("lateral", f"backbone.fpn_lateral{lvl}"),
                           ("output", f"backbone.fpn_output{lvl}")):
             conv(dst, fp[f"{kind}_{stage}"])
-            if f"BatchNorm_{bn_idx}" in fp:
-                bn(dst + ".norm", fp[f"BatchNorm_{bn_idx}"],
-                   fs[f"BatchNorm_{bn_idx}"])
-                bn_idx += 1
+            if norm(dst + ".norm", fp, fs, n_idx):
+                n_idx += 1
+    for p in ("p6", "p7"):
+        if p in fp:
+            conv(f"backbone.top_block.{p}", fp[p])
 
     # RPN head
-    head = params["proposal_generator"]["head"]
-    conv("proposal_generator.rpn_head.conv", head["conv0"])
-    conv("proposal_generator.rpn_head.objectness_logits", head["objectness_logits"])
-    conv("proposal_generator.rpn_head.anchor_deltas", head["anchor_deltas"])
+    if "proposal_generator" in params:
+        head = params["proposal_generator"]["head"]
+        conv("proposal_generator.rpn_head.conv", head["conv0"])
+        conv("proposal_generator.rpn_head.objectness_logits", head["objectness_logits"])
+        conv("proposal_generator.rpn_head.anchor_deltas", head["anchor_deltas"])
 
-    # box heads / predictors (cascade: box_head{k}; standard: box_head)
-    rh = params["roi_heads"]
-    s = _FC1_RESOLUTION
+    # ROI heads: box heads / predictors (cascade: box_head{k}; standard:
+    # box_head), convs with their norms, then FCs
+    rh = params.get("roi_heads", {})
+    rs = batch_stats.get("roi_heads", {})
     for key, tree in rh.items():
         m = re.fullmatch(r"box_(head|predictor)(\d*)", key)
         if not m:
             continue
         dst = f"roi_heads.box_{m.group(1)}" + (f".{m.group(2)}" if m.group(2) else "")
+        convs = sorted((k for k in tree if re.fullmatch(r"conv\d+", k)),
+                       key=lambda k: int(k[4:]))
+        for i, name in enumerate(convs):
+            conv(f"{dst}.{name}", tree[name])
+            norm(f"{dst}.{name}.norm", tree, rs.get(key, {}), i)
         for name, sub in tree.items():
-            fc(f"{dst}.{name}", sub)
+            if re.fullmatch(r"fc\d+|cls_score|bbox_pred", name):
+                fc(f"{dst}.{name}", sub)
         if m.group(1) == "head" and "fc1" in tree:
+            # NHWC flatten (JAX) -> NCHW flatten (port, d2)
             w = sd[f"{dst}.fc1.weight"]
             o, i = w.shape
-            c = i // (s * s)
+            c = tree[convs[-1]]["kernel"].shape[-1] if convs else i // _FC1_RESOLUTION ** 2
+            s = math.isqrt(i // c)
             sd[f"{dst}.fc1.weight"] = (w.reshape(o, s, s, c)
                                        .transpose(0, 3, 1, 2).reshape(o, i))
 
-    # mask head
+    # mask head (the JAX head has no norm parameters: it never applies one)
     if "mask_head" in rh:
         mh = rh["mask_head"]
         for key, sub in mh.items():
             if key.startswith("mask_fcn") or key == "predictor":
                 conv(f"roi_heads.mask_head.{key}", sub)
-        sd["roi_heads.mask_head.deconv.weight"] = np.ascontiguousarray(
-            _np(mh["deconv"]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
-        sd["roi_heads.mask_head.deconv.bias"] = _np(mh["deconv"]["bias"])
+        deconv("roi_heads.mask_head.deconv", mh["deconv"])
+
+    # keypoint head
+    if "keypoint_head" in rh:
+        kh = rh["keypoint_head"]
+        for key, sub in kh.items():
+            if key.startswith("conv_fcn"):
+                conv(f"roi_heads.keypoint_head.{key}", sub)
+        deconv("roi_heads.keypoint_head.score_lowres", kh["score_lowres"])
 
     # sem-seg head: {p}_conv{j} -> sem_seg_head.{p}.{2j}
-    sp = params["sem_seg_head"]
-    for key, sub in sp.items():
-        m = re.fullmatch(r"(p\d)_(conv|gn)(\d+)", key)
-        if not m:
-            continue
-        dst = f"sem_seg_head.{m.group(1)}.{2 * int(m.group(3))}"
-        if m.group(2) == "conv":
-            conv(dst, sub)
-        else:
-            sd[dst + ".norm.weight"] = _np(sub["scale"])
-            sd[dst + ".norm.bias"] = _np(sub["bias"])
-    conv("sem_seg_head.predictor", sp["predictor"])
+    if "sem_seg_head" in params:
+        sp = params["sem_seg_head"]
+        for key, sub in sp.items():
+            m = re.fullmatch(r"(p\d)_(conv|gn)(\d+)", key)
+            if not m:
+                continue
+            dst = f"sem_seg_head.{m.group(1)}.{2 * int(m.group(3))}"
+            if m.group(2) == "conv":
+                conv(dst, sub)
+            else:
+                sd[dst + ".norm.weight"] = _np(sub["scale"])
+                sd[dst + ".norm.bias"] = _np(sub["bias"])
+        conv("sem_seg_head.predictor", sp["predictor"])
+
+    # dense heads (RetinaNet, FCOS): {cls,box}_conv{i} -> head.{cls,bbox}_subnet,
+    # one Sequential slot per conv, norm (numbered cls tower first) and relu
+    if "head" in params:
+        hp = params["head"]["head"]
+        hs = scope(batch_stats, "head", "head")
+        depth = sum(1 for k in hp if k.startswith("cls_conv"))
+        step = 3 if any(f"{k}_0" in hp for k in _NORM_KINDS) else 2
+        for t, (src, dst) in enumerate((("cls", "cls_subnet"), ("box", "bbox_subnet"))):
+            for i in range(depth):
+                conv(f"head.{dst}.{step * i}", hp[f"{src}_conv{i}"])
+                norm(f"head.{dst}.{step * i + 1}", hp, hs, t * depth + i)
+        conv("head.cls_score", hp["cls_score"])
+        conv("head.bbox_pred", hp["bbox_pred"])
+        if "centerness" in hp:
+            conv("head.ctrness", hp["centerness"])
 
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
