@@ -175,22 +175,26 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
 21. zoo: the detector families through ``model_zoo.get`` at full width (bf16,
    seeded weights, numpy-drawn scenes, the test score thresholds set to 0:
    seeded heads score below 0.05), b=2 at 800x1344: Mask R-CNN R50-FPN 1x,
-   Keypoint R-CNN, RetinaNet and FCOS (forward, then one loss + backward on
-   20 drawn boxes with 64x64 mask patches and 17 keypoints each), Cascade
-   Mask R-CNN and the GN Mask R-CNN with its 4conv1fc box head (forward).
-   Prints ms per forward (synchronised, median of 5 after 3 warm ones),
-   peak memory and a torch.profiler view of 2 forwards (device busy share,
-   launches, top kernels); then every other zoo YAML the port builds, one b=1 forward
-   at 512x832. Fails unless the outputs are finite, every full-width forward
+   Keypoint R-CNN, RetinaNet, FCOS, and the RegNetX-4GF and Swin-T Mask
+   R-CNNs (forward, then one loss + backward on 20 drawn boxes with 64x64
+   mask patches and 17 keypoints each), Cascade Mask R-CNN and the GN Mask
+   R-CNN with its 4conv1fc box head (forward); the ViTDet Mask R-CNN at b=2,
+   1024x1024 (its pad bucket) and the R50 3x file over an MViT trunk at b=1,
+   512x832 (forward, loss + backward). Prints ms per forward (synchronised,
+   median of 5 after 3 warm ones), peak memory, a torch.profiler view of 2
+   forwards (device busy share, launches, top kernels) and the device time
+   of the trunk's attention; then every other zoo YAML, one b=1 forward at
+   512x832. Fails unless the outputs are finite, every full-width forward
    keeps detections, every head's gradient is finite and non-zero, K1
    launches once per ROI pool of every forward (Mask R-CNN 2, Keypoint
    R-CNN 2, Cascade 4, the dense detectors 0) and K1 + K3 once per pool of
-   every loss + backward (2 + 2), and the files not built are exactly the
-   RegNet, Swin and ViTDet ones (28 of 31 built);
+   every loss + backward (2 + 2), and all 31 zoo files build;
 22. zoo_cpu: the six meta-architectures at a tiny config in f32 (TF32 off)
    on the card (kernels) and on the CPU (plain versions): the ROI heads,
    dense heads, RPN and sem-seg head on the CPU trunk's features, and one
-   train forward's losses (see ``phase_zoo_cpu`` for the tolerances).
+   train forward's losses; Mask R-CNN over tiny ViTDet, Swin, MViT and
+   RegNet trunks also compares the trunks' pyramids (see ``phase_zoo_cpu``
+   for the tolerances).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -3294,16 +3298,25 @@ def phase_pseudo_cpu(dev):
 # Phases 21 / 22: the detector families of the model zoo
 # ---------------------------------------------------------------------------
 
-ZOO_FULL = (("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", True),
-            ("COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml", True),
-            ("COCO-Detection/retinanet_R_50_FPN_1x.yaml", True),
-            ("COCO-Detection/fcos_R_50_FPN_1x.yaml", True),
-            ("Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml", False),
-            ("Misc/mask_rcnn_R_50_FPN_3x_gn.yaml", False))
-ZOO_NOT_PORTED = ("Misc/mask_rcnn_regnetx_4gf_fpn_3x.yaml", "Misc/mask_rcnn_swin_t_fpn_3x.yaml",
-                  "ViTDet/mask_rcnn_vitdet_b_100ep.yaml")
 ZOO_SMALL_HW = (512, 832)
 ZOO_TIMED = 5
+# (zoo file, loss + backward, batch, (H, W), backbone name put in its place)
+ZOO_FULL = (("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", True, 2, TRAIN_HW, None),
+            ("COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml", True, 2, TRAIN_HW, None),
+            ("COCO-Detection/retinanet_R_50_FPN_1x.yaml", True, 2, TRAIN_HW, None),
+            ("COCO-Detection/fcos_R_50_FPN_1x.yaml", True, 2, TRAIN_HW, None),
+            ("Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml", False, 2, TRAIN_HW, None),
+            ("Misc/mask_rcnn_R_50_FPN_3x_gn.yaml", False, 2, TRAIN_HW, None),
+            ("Misc/mask_rcnn_regnetx_4gf_fpn_3x.yaml", True, 2, TRAIN_HW, None),
+            ("Misc/mask_rcnn_swin_t_fpn_3x.yaml", True, 2, TRAIN_HW, None),
+            # its LSJ pad bucket, which its pos_embed is made for
+            ("ViTDet/mask_rcnn_vitdet_b_100ep.yaml", True, 2, (1024, 1024), None),
+            # no zoo file names MViTFPN; its stage 0 attends from every
+            # stride-4 token to a quarter of them (27 GB of f32 scores per
+            # block at b=2, 800x1344), so it runs at b=1, 512x832
+            ("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml", True, 1, ZOO_SMALL_HW,
+             "MViTFPN"))
+ATTENTION_MODULES = ("vit", "swin", "mvit")
 
 
 def pools_per_forward(cfg) -> int:
@@ -3376,8 +3389,9 @@ def zoo_train_batch(cfg, b: int, h: int, w: int):
 
 def zoo_grad_groups(model):
     if hasattr(model, "roi_heads"):
-        groups = ["backbone.bottom_up", "backbone.fpn_", "proposal_generator",
-                  "roi_heads.box_head", "roi_heads.box_predictor"]
+        groups = (["backbone.net", "backbone.simfp_"] if hasattr(model.backbone, "net")
+                  else ["backbone.bottom_up", "backbone.fpn_"])
+        groups += ["proposal_generator", "roi_heads.box_head", "roi_heads.box_predictor"]
         groups += [f"roi_heads.{h}" for h in ("mask_head", "keypoint_head")
                    if hasattr(model.roi_heads, h)]
     else:
@@ -3392,23 +3406,65 @@ def zoo_grad_groups(model):
     return out
 
 
+def zoo_model(rel: str, backbone, dev):
+    """``model_zoo.get`` of a zoo file, or its config with another backbone
+    built through ``build_model``."""
+    from u2seg_torch import model_zoo
+    from u2seg_torch.models.build import build_model
+
+    if backbone is None:
+        return model_zoo.get(rel, device=dev)
+    cfg = model_zoo.get_config(rel)
+    cfg.model.backbone.name = backbone
+    return build_model(cfg, device=dev), cfg
+
+
+def attention_profile(fn) -> dict:
+    """Device ms of the trunk's attention (``models.vit.attention``: q @ k^T,
+    softmax, @ v, and the bias/mask adds) in one call of ``fn``: every
+    attention call of it re-run alone on its own inputs (CUDA events, the
+    mean of 3 runs after a warm one) and summed; 0 calls where the model
+    has none."""
+    import importlib
+
+    mods = [importlib.import_module(f"u2seg_torch.models.{m}") for m in ATTENTION_MODULES]
+    plain = mods[0].attention
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return plain(*args, **kwargs)
+
+    for m in mods:
+        m.attention = recorded
+    try:
+        fn()
+    finally:
+        for m in mods:
+            m.attention = plain
+    with torch.no_grad():
+        ms = sum(cuda_ms(lambda: plain(*a, **k), iters=3, warmup=1) for a, k in calls)
+    return dict(calls=len(calls), ms=ms)
+
+
 def phase_zoo(dev):
     """The detector families through ``model_zoo.get`` at full width (bf16,
-    seeded weights, numpy-drawn scenes): b=2 at 800x1344, 3 warm forwards and
-    ZOO_TIMED timed ones (each synchronised; the median is printed), peak
-    memory; then one ``model(..., train=True)`` loss + ``backward()`` on 20
-    drawn boxes with 64x64 mask patches (and 17 keypoints each) for the
-    Mask, Keypoint, RetinaNet and FCOS configs. Then every other YAML of the
+    seeded weights, numpy-drawn scenes), each row of ZOO_FULL at its batch
+    and size (b=2 at 800x1344; ViTDet at its 1024x1024 bucket; MViT b=1 at
+    512x832): 3 warm forwards and ZOO_TIMED timed ones (each synchronised;
+    the median is printed), peak memory, a profile of the forward and of the
+    trunk's attention; then one ``model(..., train=True)`` loss +
+    ``backward()`` on 20 drawn boxes with 64x64 mask patches (and 17
+    keypoints each) where the row asks for it. Then every other YAML of the
     zoo: one b=1 forward at 512x832. Fails unless the outputs are finite,
     every full-width forward keeps detections, every head's gradient is
     finite and non-zero, K1 launches once per ROI pool of every forward and
-    K1 + K3 once per pool of every loss + backward, and the files the port
-    does not build are exactly the RegNet, Swin and ViTDet ones."""
+    K1 + K3 once per pool of every loss + backward, and all 31 zoo files
+    build."""
     from u2seg_torch import model_zoo
     from u2seg_torch.ops import roi_align_ml as rap
 
     k1, k3 = rap.multilevel_roi_align_kernel, rap.multilevel_roi_align_backward
-    (h, w), b = TRAIN_HW, 2
     # PyTorch's defaults (earlier phases turn TF32 off): the dense heads'
     # f32 convs take TF32, matmuls stay f32
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -3428,9 +3484,10 @@ def phase_zoo(dev):
         return out
 
     t_phase = time.perf_counter()
-    for rel, train in ZOO_FULL:
+    for rel, train, b, (h, w), backbone in ZOO_FULL:
         torch.cuda.empty_cache()
-        model, cfg = model_zoo.get(rel, device=dev)
+        model, cfg = zoo_model(rel, backbone, dev)
+        name = f"{rel} ({backbone})" if backbone else rel
         zoo_calibrate(model.cfg)
         pools = pools_per_forward(cfg)
         rng = np.random.RandomState(4)
@@ -3443,23 +3500,27 @@ def phase_zoo(dev):
         times = []
         for i in range(ZOO_TIMED):
             t0 = time.perf_counter()
-            out = counted(lambda: model(img, sz), pools, tag=f"{rel} forward {i}")
+            out = counted(lambda: model(img, sz), pools, tag=f"{name} forward {i}")
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
         finite = all(bool(torch.isfinite(t).all()) for t in output_tensors(out))
         n_det = int(out.valid.sum())
-        row = dict(config=rel, meta=cfg.model.meta_architecture, ms=float(np.median(times)),
+        row = dict(config=rel, backbone=cfg.model.backbone.name, batch=b, hw=[h, w],
+                   meta=cfg.model.meta_architecture, ms=float(np.median(times)),
                    ms_all=times, peak_mib=peak, detections=n_det, k1_per_forward=pools,
-                   profile=forward_profile(lambda: model(img, sz)))
-        prof = row["profile"]
-        msg = (f"[zoo] {rel}: b={b} {h}x{w} bf16 forward {row['ms']:.2f} ms (median of "
+                   profile=forward_profile(lambda: model(img, sz)),
+                   attention=attention_profile(lambda: model(img, sz)))
+        prof, attn = row["profile"], row["attention"]
+        msg = (f"[zoo] {name}: b={b} {h}x{w} bf16 forward {row['ms']:.2f} ms (median of "
                f"{ZOO_TIMED}; {min(times):.2f}-{max(times):.2f}), peak {peak:.0f} MiB, "
                f"{n_det} detections, K1 {pools} per forward; profiled {prof['wall_ms']:.1f} ms "
                f"with {prof['device_ms']:.2f} ms of kernels (busy {prof['busy']:.3f}), "
                f"{prof['launches']:.0f} launches, top: " + ", ".join(
-                   f"{t['name'][:40]} {t['ms']:.2f}" for t in prof["top"]))
+                   f"{t['name'][:40]} {t['ms']:.2f}" for t in prof["top"])
+               + (f"; trunk attention {attn['ms']:.2f} ms of device time in {attn['calls']} "
+                  f"calls (each re-run alone)" if attn["calls"] else ""))
         if not (finite and n_det > 0):
-            failures.append(f"{rel}: finite={finite} detections={n_det}")
+            failures.append(f"{name}: finite={finite} detections={n_det}")
         if train:
             model.train()
             model.zero_grad(set_to_none=True)
@@ -3474,7 +3535,7 @@ def phase_zoo(dev):
                 sum(losses.values()).backward()
                 return losses
 
-            losses = counted(loss_and_backward, pools, pools, tag=f"{rel} train")
+            losses = counted(loss_and_backward, pools, pools, tag=f"{name} train")
             row["train_ms"] = (time.perf_counter() - t0) * 1e3
             row["train_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
             row["losses"] = {k: float(v.detach()) for k, v in losses.items()}
@@ -3482,7 +3543,7 @@ def phase_zoo(dev):
             ok = (all(np.isfinite(v) for v in row["losses"].values())
                   and all(np.isfinite(v) and v > 0 for v in norms.values()))
             if not ok:
-                failures.append(f"{rel} train: losses {row['losses']}, gradient norms {norms}")
+                failures.append(f"{name} train: losses {row['losses']}, gradient norms {norms}")
             msg += (f"; loss + backward {row['train_ms']:.1f} ms (first call), peak "
                     f"{row['train_peak_mib']:.0f} MiB, K1/K3 {pools}/{pools}, losses "
                     + ", ".join(f"{k[5:]} {v:.4f}" for k, v in row["losses"].items())
@@ -3492,21 +3553,16 @@ def phase_zoo(dev):
         del model, out
     full_s = time.perf_counter() - t_phase
 
-    others, skipped = [], []
+    others = []
     sh, sw = ZOO_SMALL_HW
     img = torch.from_numpy(scene(np.random.RandomState(5), sh, sw))[None].to(dev)
     sz = torch.tensor([[sh, sw]], dtype=torch.int32, device=dev)
-    full = {rel for rel, _ in ZOO_FULL}
+    full = {row[0] for row in ZOO_FULL if row[4] is None}
     t0 = time.perf_counter()
     for rel in model_zoo.list_configs():
         if rel in full:
             continue
-        try:
-            model, cfg = model_zoo.get(rel, device=dev)
-        except KeyError as e:
-            skipped.append(rel)
-            log(f"[zoo] {rel}: not built ({e})")
-            continue
+        model, cfg = model_zoo.get(rel, device=dev)
         out = counted(lambda: model(img, sz), pools_per_forward(cfg), tag=rel)
         if not all(bool(torch.isfinite(t).all()) for t in output_tensors(out)):
             failures.append(f"{rel}: non-finite outputs")
@@ -3517,23 +3573,35 @@ def phase_zoo(dev):
     built = len(full) + len(others)
     log(f"[zoo] every other YAML: {len(others)} built, b=1 {sh}x{sw} forward each "
         f"({others_s:.1f} s with the builds); {built} of {len(model_zoo.list_configs())} "
-        f"zoo files built in all; not built: {', '.join(skipped)}")
-    if tuple(sorted(skipped)) != ZOO_NOT_PORTED or built != 28:
-        failures.append(f"built {built}, skipped {skipped}")
+        f"zoo files built in all")
+    if built != 31 or len(model_zoo.list_configs()) != 31:
+        failures.append(f"built {built} of {len(model_zoo.list_configs())} zoo files")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     log(f"[zoo] K1 launches {launches['k1']}, K3 launches {launches['k3']} "
         f"({full_s:.1f} s for the full-width configs)")
     if failures:
         raise AssertionError(f"zoo: {failures}")
-    return dict(rows=rows, others=others, skipped=skipped, launches=launches,
+    return dict(rows=rows, others=others, built=built, launches=launches,
                 full_s=full_s, others_s=others_s)
 
 
-def tiny_zoo_config(meta: str, **heads):
+# narrow trunks of the four transformer and RegNet backbones (tiny_zoo_config)
+TINY_TRUNKS = {
+    "ViTDet": dict(vit_dim=64, vit_depth=3, vit_num_heads=2, vit_window_size=3,
+                   vit_global_blocks=(1,)),
+    "SwinFPN": dict(embed_dim=32, depths=(2, 2, 2, 2), trunk_num_heads=(1, 2, 2, 2)),
+    "MViTFPN": dict(embed_dim=32, depths=(1, 2, 1, 1), trunk_num_heads=(1, 1, 2, 2)),
+    "RegNetFPN": dict(regnet_w_a=8.0, regnet_w_0=8, regnet_w_m=2.0, regnet_depth=6,
+                      regnet_group_width=8),
+}
+
+
+def tiny_zoo_config(meta: str, backbone: str = "ResNetFPN", hw=(128, 128), **heads):
     """A narrow config of one meta-architecture in f32 with the kernels'
-    pooler: 8 bottleneck blocks, 32-channel FPN, 7 box classes, 5 dense and
-    stuff classes; sampling sizes that take every candidate; the test score
-    thresholds at 0 (``zoo_calibrate``)."""
+    pooler: 8 bottleneck blocks (or a TINY_TRUNKS trunk, built for ``hw``),
+    32-channel FPN, 7 box classes, 5 dense and stuff classes; sampling sizes
+    that take every candidate; the test score thresholds at 0
+    (``zoo_calibrate``)."""
     from u2seg_torch.config import Config
 
     cfg = Config()
@@ -3564,6 +3632,10 @@ def tiny_zoo_config(meta: str, **heads):
     rh.name = heads.get("name", "StandardROIHeads")
     rh.mask_on = m.mask_on = heads.get("mask_on", True)
     rh.keypoint_on = m.keypoint_on = heads.get("keypoint_on", False)
+    m.backbone.name = backbone
+    for k, v in TINY_TRUNKS.get(backbone, {}).items():
+        setattr(m.backbone, k, v)
+    cfg.input.pad_buckets = (tuple(hw),)
     zoo_calibrate(m)
     return cfg
 
@@ -3571,7 +3643,11 @@ def tiny_zoo_config(meta: str, **heads):
 ZOO_CPU_CASES = (("mask_keypoint", "GeneralizedRCNN", {"keypoint_on": True}),
                  ("cascade_mask", "GeneralizedRCNN", {"name": "CascadeROIHeads"}),
                  ("retinanet", "RetinaNet", {}), ("fcos", "FCOS", {}),
-                 ("rpn", "ProposalNetwork", {}), ("sem", "SemanticSegmentor", {}))
+                 ("rpn", "ProposalNetwork", {}), ("sem", "SemanticSegmentor", {}),
+                 ("vitdet", "GeneralizedRCNN", {"backbone": "ViTDet"}),
+                 ("swin", "GeneralizedRCNN", {"backbone": "SwinFPN"}),
+                 ("mvit", "GeneralizedRCNN", {"backbone": "MViTFPN"}),
+                 ("regnet", "GeneralizedRCNN", {"backbone": "RegNetFPN"}))
 
 
 def phase_zoo_cpu(dev):
@@ -3585,7 +3661,9 @@ def phase_zoo_cpu(dev):
     same), the RPN's proposals (>= 95% within 0.01 px, phase cpu's), the
     sem-seg logits (1e-3 of max, phase cpu's). (b) The loss dict of one
     train forward, every candidate sampled: each loss rtol 1e-3 (phase
-    train_cpu's whole-step tolerance)."""
+    train_cpu's whole-step tolerance). (c) For the four trunk twins (Mask
+    R-CNN over tiny ViTDet, Swin, MViT and RegNet trunks): every pyramid
+    level of the card's own trunk against the CPU's, 1e-4 of max."""
     from u2seg_torch.models.build import build_model
     from u2seg_torch.structures.instances import GtInstances
 
@@ -3617,6 +3695,10 @@ def phase_zoo_cpu(dev):
         with torch.no_grad():
             fc = cpu.features(images)
             fg = {k: v.to(dev) for k, v in fc.items()}
+            if "backbone" in heads:
+                # the trunk and its pyramid on the card against the CPU
+                own = gpu.features(images.to(dev))
+                r["levels_err"] = max(rel_err(own[k].cpu(), fc[k]) for k in fc)
             if meta == "GeneralizedRCNN":
                 p = cpu.proposal_generator(fc, sizes)
                 args = (p.proposal_boxes, p.proposal_scores, p.proposal_valid)

@@ -65,7 +65,12 @@ def test_no_source_imports_jax_or_the_jax_package():
             "tools/convert_weights.py", "pseudo/dino.py", "pseudo/kmeans.py",
             "pseudo/uslt.py", "pseudo/assembly.py", "tools/generate_pseudo_labels.py",
             "models/rcnn.py", "models/dense_detector.py", "models/keypoint_head.py",
-            "structures/keypoints.py", "models/tta.py", "model_zoo.py"} <= rel
+            "structures/keypoints.py", "models/tta.py", "model_zoo.py",
+            "models/regnet.py", "models/vit.py", "models/swin.py", "models/mvit.py",
+            "data/pascal_voc.py", "data/lvis.py", "data/cityscapes.py",
+            "evaluation/pascal_voc_evaluator.py", "evaluation/lvis_evaluator.py",
+            "evaluation/cityscapes_instance_ap.py",
+            "evaluation/cityscapes_evaluator.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -140,8 +145,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from u2seg_torch import model_zoo
 
     for rel in model_zoo.list_configs():
-        if "regnet" in rel or "swin" in rel or "vitdet" in rel:
-            continue
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(model_zoo.get_config(rel))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,8 +1,9 @@
 """u2seg_torch's model zoo: the port twin of the JAX package's
 ``tests/config/test_config_zoo.py`` (every YAML of ``configs/`` loads and
 builds, here on ``device="cpu"`` with the port's seeded init), and of its
-model-zoo API test. The 28 ResNet-FPN files build; the RegNet, Swin and
-ViTDet files raise ``KeyError`` until those trunks are ported.
+model-zoo API test. All 31 files build: 28 over ResNet-FPN, and the RegNet,
+Swin and ViTDet files over their trunks (``TRUNKS``), whose modules the
+build checks.
 """
 import os
 
@@ -16,16 +17,16 @@ from u2seg_torch.models.build import build_model
 torch.set_num_threads(1)
 
 ZOO = model_zoo.list_configs()
-NOT_PORTED = {"Misc/mask_rcnn_regnetx_4gf_fpn_3x.yaml": "RegNetFPN",
-              "Misc/mask_rcnn_swin_t_fpn_3x.yaml": "SwinFPN",
-              "ViTDet/mask_rcnn_vitdet_b_100ep.yaml": "ViTDet"}
+TRUNKS = {"Misc/mask_rcnn_regnetx_4gf_fpn_3x.yaml": ("TrunkFPN", "RegNet"),
+          "Misc/mask_rcnn_swin_t_fpn_3x.yaml": ("TrunkFPN", "SwinTransformer"),
+          "ViTDet/mask_rcnn_vitdet_b_100ep.yaml": ("ViTDet", "ViT")}
 MODULES = {"PanopticFPN": "PanopticFPN", "GeneralizedRCNN": "GeneralizedRCNN",
            "ProposalNetwork": "ProposalNetwork", "SemanticSegmentor": "SemanticSegmentor",
            "RetinaNet": "DenseDetectorMetaArch", "FCOS": "DenseDetectorMetaArch"}
 
 
 def test_the_zoo_has_31_configs():
-    assert len(ZOO) == 31 and set(NOT_PORTED) <= set(ZOO)
+    assert len(ZOO) == 31 and set(TRUNKS) <= set(ZOO)
     assert not any(os.path.basename(p).startswith("Base-") for p in ZOO)
 
 
@@ -34,18 +35,25 @@ def test_config_loads_and_builds(rel):
     cfg = load_config(model_zoo.get_config_file(rel))
     assert cfg.model.roi_heads.mask_on == cfg.model.mask_on
     assert cfg.model.roi_heads.keypoint_on == cfg.model.keypoint_on
-    if rel in NOT_PORTED:
-        with pytest.raises(KeyError, match=f"{NOT_PORTED[rel]}.*not ported yet"):
-            build_model(cfg, device="cpu")
-        return
     model = build_model(cfg, device="cpu")
     assert type(model).__name__ == MODULES[cfg.model.meta_architecture]
+    backbone, trunk = TRUNKS.get(rel, ("FPN", "ResNet"))
+    assert type(model.backbone).__name__ == backbone
+    bottom_up = model.backbone.net if backbone == "ViTDet" else model.backbone.bottom_up
+    assert type(bottom_up).__name__ == trunk
     assert not model.training
     assert next(model.parameters()).device.type == "cpu"
     heads = getattr(model, "roi_heads", None)
     if heads is not None:
         assert hasattr(heads, "mask_head") == cfg.model.mask_on
         assert hasattr(heads, "keypoint_head") == cfg.model.keypoint_on
+
+
+def test_an_unknown_backbone_is_refused():
+    cfg = model_zoo.get_config("COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml")
+    cfg.model.backbone.name = "NoSuchFPN"
+    with pytest.raises(KeyError, match="Unknown backbone: NoSuchFPN"):
+        build_model(cfg, device="cpu")
 
 
 def test_model_zoo_api():

@@ -266,6 +266,32 @@ def test_image_larger_than_the_canvas_takes_the_host_fallback(predictors):
     assert_same_result(got, tp(big), masks=True)
 
 
+@pytest.mark.parametrize("mask_on", [True, False])
+def test_a_fallback_image_counts_the_copies_it_makes(predictors, monkeypatch, mask_on):
+    """A fallback image fetches its sem-seg logits, and its mask logits only
+    where there are any; the batch adds its one rendered copy (and 2 when
+    its runs overflow the fetched prefix). The device render paints mask
+    logits in both packages, so a maskless model cannot reach the drain: the
+    maskless case hands the drain no mask logits, as such a model would."""
+    _, tp = predictors
+    if not mask_on:
+        tail = tp._render_tail
+
+        def maskless_tail(*args):
+            buf, rendered, _, sem_logits = tail(*args)
+            return buf, rendered, None, sem_logits
+
+        monkeypatch.setattr(tp, "_render_tail", maskless_tail)
+    big = (np.random.RandomState(5).rand(56, 112, 3) * 255).astype(np.uint8)
+    before = dict(tp.fetch_stats)
+    (_, got), = list(tp.run_batched([("big", big)], batch_size=2,
+                                    device_render=True, device_resize=True))
+    assert tp.fetch_stats["fallbacks"] == before.get("fallbacks", 0) + 1
+    assert ("masks" in got["instances"]) == mask_on
+    fetched = tp.fetch_stats["fetches"] - before["fetches"]
+    assert fetched - (3 if mask_on else 2) in (0, 2)
+
+
 def test_predictor_refuses_to_fall_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny(tconfig.Config())

@@ -15,7 +15,8 @@ JAX:
 
 Tolerance card vs CPU (f32, TF32 off, ``pooler_impl="pallas"`` on both):
 boxes and scores of the detections both devices keep rtol 1e-4 with atol
-1e-4 * max|cpu|, classes and validity equal.
+1e-4 * max|cpu|, classes and validity equal; the pyramid levels of the tiny
+ViTDet, Swin, MViT and RegNet trunks the same.
 """
 import numpy as np
 import pytest
@@ -120,6 +121,39 @@ def test_training_launches_k1_and_k3_once_per_pool(dev, family):
     assert rap.multilevel_roi_align_backward.launches == 2
     assert ("loss_keypoint" in losses) == (family == "keypoint")
     assert all(bool(torch.isfinite(v)) for v in losses.values())
+
+
+TRUNKS = {
+    "ViTDet": dict(vit_dim=64, vit_depth=3, vit_num_heads=2, vit_window_size=3,
+                   vit_global_blocks=(1,)),
+    "SwinFPN": dict(embed_dim=32, depths=(2, 2, 2, 2), trunk_num_heads=(1, 2, 2, 2)),
+    "MViTFPN": dict(embed_dim=32, depths=(1, 2, 1, 1), trunk_num_heads=(1, 1, 2, 2)),
+    "RegNetFPN": dict(regnet_w_a=8.0, regnet_w_0=8, regnet_w_m=2.0, regnet_depth=6,
+                      regnet_group_width=8),
+}
+
+
+@pytest.mark.parametrize("backbone", sorted(TRUNKS))
+def test_trunk_on_the_card_matches_the_cpu(dev, backbone):
+    """A Mask R-CNN over a tiny trunk, built for the 128x128 input: the
+    pyramid levels on both devices, then 2 K1 launches per forward."""
+    cfg = tiny("GeneralizedRCNN", {"name": "StandardROIHeads"})
+    cfg.model.backbone.name = backbone
+    for k, v in TRUNKS[backbone].items():
+        setattr(cfg.model.backbone, k, v)
+    cfg.input.pad_buckets = ((128, 128),)
+    gpu, cpu = build_model(cfg, device=dev, seed=2), build_model(cfg, device="cpu", seed=2)
+    x, s = images(dev)
+    with torch.no_grad():
+        fc, fg = cpu.features(x.cpu()), gpu.features(x)
+    assert sorted(fc) == sorted(fg) == ["p2", "p3", "p4", "p5", "p6"]
+    for k, a in fc.items():
+        assert torch.allclose(fg[k].cpu(), a, rtol=1e-4, atol=1e-4 * float(a.abs().max())), k
+    rap.multilevel_roi_align_kernel.launches = 0
+    out = gpu(x, s)
+    torch.cuda.synchronize()
+    assert rap.multilevel_roi_align_kernel.launches == 2
+    assert bool(torch.isfinite(out.boxes).all())
 
 
 @pytest.mark.parametrize("family", ["mask", "keypoint", "cascade_mask"])

@@ -6,7 +6,8 @@ Weights. The JAX module's variable shapes come from ``jax.eval_shape`` of its
 ``init`` (traced, not compiled) and every leaf is drawn from a numpy seed:
 kernels with std sqrt(1 / fan_in) (the box regressors ``bbox_pred`` and
 ``anchor_deltas`` 10x smaller, so decoded boxes stay near their anchors),
-biases and BN means N(0, 0.1), norm scales and BN variances U(0.5, 1.5). The
+biases and BN means N(0, 0.1), norm scales and BN variances U(0.5, 1.5), the
+transformer trunks' ``pos_embed`` and ``rel_pos_bias`` tables N(0, 0.5). The
 levels then stay O(1) through the trunk. The port loads the same numbers
 through ``weights.from_jax`` with a strict ``load_state_dict``. Classifiers
 at that scale are the score calibration of these tests: the packages' own
@@ -66,6 +67,9 @@ def tiny(cfg, meta="GeneralizedRCNN", **over):
 
 # box regressors: small, so decoded boxes stay near their anchors
 _DELTA_HEADS = ("bbox_pred", "anchor_deltas")
+# ViT's position embedding and Swin's relative position bias: large enough
+# that a wrong index or grid shows
+_TABLES = ("pos_embed", "rel_pos_bias")
 
 
 def random_variables(module, seed, *args, **kwargs):
@@ -86,6 +90,8 @@ def random_variables(module, seed, *args, **kwargs):
             return (rng.randn(*shape) * 0.1).astype(np.float32)
         if name in ("scale", "var"):
             return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        if name in _TABLES:
+            return (rng.randn(*shape) * 0.5).astype(np.float32)
         raise KeyError(f"unexpected leaf {name}")
 
     tree = jax.tree_util.tree_map_with_path(fill, shapes)

@@ -348,7 +348,7 @@ class DefaultPredictor:
                 if mask_logits is not None:
                     det_i["mask_logits"] = _to_numpy(mask_logits[i])
                 sem_np = _to_numpy(sem_logits[i])
-                self.fetch_stats["fetches"] += 2
+                self.fetch_stats["fetches"] += 1 + (mask_logits is not None)
                 self.fetch_stats["fallbacks"] = self.fetch_stats.get(
                     "fallbacks", 0) + 1
                 yield meta, self._post(det_i, sem_np, tuple(hw), ohow)

@@ -1,7 +1,9 @@
 """Model construction (counterpart of ``u2seg_tpu/models/build.py``).
 
 ``META_ARCH_REGISTRY`` maps ``model.meta_architecture`` to a constructor taking
-the model config; ``register_meta_arch`` adds one. The built-in names are
+the model config and ``input_hw``, the (H, W) that the model is built for
+(``input.pad_buckets[0]``, where the JAX predictor initialises its model:
+ViTDet's ``pos_embed`` follows it); ``register_meta_arch`` adds one. The built-in names are
 the JAX package's six: PanopticFPN, GeneralizedRCNN, ProposalNetwork,
 SemanticSegmentor, RetinaNet and FCOS.
 
@@ -64,6 +66,6 @@ def build_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,
         _register_builtin()
     if name not in META_ARCH_REGISTRY:
         raise KeyError(f"Unknown meta architecture: {name}")
-    model = META_ARCH_REGISTRY[name](cfg.model)
+    model = META_ARCH_REGISTRY[name](cfg.model, input_hw=tuple(cfg.input.pad_buckets[0]))
     seeded_init(model, seed)
     return model.to(dev).eval()

@@ -280,7 +280,7 @@ class DenseDetectorMetaArch(ImageModel):
     ``forward(images, image_sizes, gt=None, train=False)`` returns
     ``Detections``, or the loss dict."""
 
-    def __init__(self, cfg: ModelConfig, head_name: str = "RetinaNet"):
+    def __init__(self, cfg: ModelConfig, head_name: str = "RetinaNet", input_hw=None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
@@ -288,7 +288,7 @@ class DenseDetectorMetaArch(ImageModel):
         if fpn.top_block != "p6p7":
             fpn = dataclasses.replace(fpn, top_block="p6p7",
                                       in_features=("res3", "res4", "res5"))
-        self.backbone = build_backbone(dataclasses.replace(cfg, fpn=fpn))
+        self.backbone = build_backbone(dataclasses.replace(cfg, fpn=fpn), input_hw)
         detector = (RetinaNet(cfg.retinanet, fpn.out_channels) if head_name == "RetinaNet"
                     else FCOS(cfg.fcos, fpn.out_channels))
         # the detector holds no parameter but its head's: registering the head
@@ -307,9 +307,9 @@ class DenseDetectorMetaArch(ImageModel):
                                      gt=gt, train=train)
 
 
-def RetinaNetDetector(model_cfg: ModelConfig) -> DenseDetectorMetaArch:
-    return DenseDetectorMetaArch(model_cfg, head_name="RetinaNet")
+def RetinaNetDetector(model_cfg: ModelConfig, input_hw=None) -> DenseDetectorMetaArch:
+    return DenseDetectorMetaArch(model_cfg, "RetinaNet", input_hw)
 
 
-def FCOSDetector(model_cfg: ModelConfig) -> DenseDetectorMetaArch:
-    return DenseDetectorMetaArch(model_cfg, head_name="FCOS")
+def FCOSDetector(model_cfg: ModelConfig, input_hw=None) -> DenseDetectorMetaArch:
+    return DenseDetectorMetaArch(model_cfg, "FCOS", input_hw)

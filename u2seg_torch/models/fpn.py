@@ -2,6 +2,11 @@
 
 detectron2's layout: the backbone module owns ``bottom_up`` and the
 ``fpn_lateral{2..5}`` / ``fpn_output{2..5}`` convs (each with ``.norm``).
+``bottom_up`` is the ResNet of a ``ResNetConfig``, or a trunk module with
+its per-level ``channels`` (``TrunkFPN``: RegNet, Swin, MViT). The pyramid
+computes in the dtype of its input image: a trunk that computes in f32
+(the JAX package builds the trunks with no dtype) hands its levels back in
+that dtype, as the JAX FPN's ``dtype`` casts them.
 Top-down: lateral 1x1 + nearest 2x upsample of the coarser result (summed,
 or with ``fuse_type="avg"`` averaged), 3x3 output conv. The top block makes
 the next level from the coarsest output: ``maxpool`` a stride-2 max-pool
@@ -12,7 +17,7 @@ flax promotes their bf16 input to the f32 of their parameters.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 import torch.nn.functional as F
@@ -46,18 +51,23 @@ class LastLevelP6P7(nn.Module):
 
 
 class FPN(nn.Module):
-    """ResNet bottom-up + FPN; returns {"p<l>": NCHW map} from the finest
+    """Bottom-up (a ResNet, or a trunk module returning ``res2..res5`` with
+    its ``channels``) + FPN; returns {"p<l>": NCHW map} from the finest
     input level to the top block's."""
 
-    def __init__(self, resnet_cfg: ResNetConfig, cfg: FPNConfig):
+    def __init__(self, bottom_up: Union[ResNetConfig, nn.Module], cfg: FPNConfig):
         super().__init__()
         if cfg.top_block not in ("maxpool", "p6p7") or cfg.fuse_type not in ("sum", "avg"):
             raise ValueError(f"unknown FPN top block {cfg.top_block!r} or "
                              f"fuse type {cfg.fuse_type!r}")
-        self.bottom_up = ResNet(resnet_cfg)
+        if isinstance(bottom_up, ResNetConfig):
+            self.bottom_up = ResNet(bottom_up)
+            chans = feature_channels(bottom_up)
+        else:
+            self.bottom_up = bottom_up
+            chans = bottom_up.channels
         self.in_features = tuple(cfg.in_features)
         self.fuse_avg = cfg.fuse_type == "avg"
-        chans = feature_channels(resnet_cfg)
         use_bias = cfg.norm == ""
         for name in self.in_features:
             lvl = FEATURE_STRIDES[name].bit_length() - 1
@@ -76,7 +86,7 @@ class FPN(nn.Module):
         prev = None
         for name in reversed(self.in_features):
             lvl = FEATURE_STRIDES[name].bit_length() - 1
-            lateral = getattr(self, f"fpn_lateral{lvl}")(bottom_up[name])
+            lateral = getattr(self, f"fpn_lateral{lvl}")(bottom_up[name].to(x.dtype))
             if prev is not None:
                 lateral = lateral + _upsample2x(prev)
                 if self.fuse_avg:

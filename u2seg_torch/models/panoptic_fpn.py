@@ -38,8 +38,8 @@ class PanopticOutput:
 class PanopticFPN(GeneralizedRCNN):
     """GeneralizedRCNN + the sem-seg head and the panoptic fusion."""
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, input_hw=None):
+        super().__init__(cfg, input_hw)
         self.sem_seg_head = SemSegFPNHead(cfg.sem_seg_head, cfg.fpn.out_channels)
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,

@@ -65,13 +65,13 @@ class ImageModel(nn.Module):
 
 
 class GeneralizedRCNN(ImageModel):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, input_hw=None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         ch = cfg.fpn.out_channels
-        self.backbone = build_backbone(cfg)
-        self.proposal_generator = RPN(cfg.rpn, cfg.anchors, ch)
+        self.backbone = build_backbone(cfg, input_hw)
+        self.proposal_generator = RPN(cfg.rpn, cfg.anchors, ch, self.compute_dtype)
         heads = (CascadeROIHeads if cfg.roi_heads.name == "CascadeROIHeads"
                  else StandardROIHeads)
         self.roi_heads = heads(cfg.roi_heads, ch, self.compute_dtype)
@@ -106,10 +106,10 @@ class ProposalNetwork(ImageModel):
     """Backbone + RPN; the proposals come out as ``Detections`` of class 0
     with the objectness logits as scores (-inf on empty slots)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, input_hw=None):
         super().__init__()
         self.cfg = cfg
-        self.backbone = build_backbone(cfg)
+        self.backbone = build_backbone(cfg, input_hw)
         self.proposal_generator = RPN(cfg.rpn, cfg.anchors, cfg.fpn.out_channels)
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
@@ -132,10 +132,10 @@ class SemanticSegmentor(ImageModel):
     """Backbone + sem-seg head: stride-4 logits (B, H/4, W/4, C) f32, or with
     ``sem_seg_gt`` (B, H, W) and ``train`` the ``loss_sem_seg`` dict."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, input_hw=None):
         super().__init__()
         self.cfg = cfg
-        self.backbone = build_backbone(cfg)
+        self.backbone = build_backbone(cfg, input_hw)
         self.sem_seg_head = SemSegFPNHead(cfg.sem_seg_head, cfg.fpn.out_channels)
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,

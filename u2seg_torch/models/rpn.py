@@ -28,10 +28,12 @@ from u2seg_torch.structures.instances import GtInstances
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + relu -> (objectness, anchor deltas) 1x1 convs."""
+    """Shared 3x3 conv + relu -> (objectness, anchor deltas) 1x1 convs, in
+    ``dtype`` (None: the levels' own)."""
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    def __init__(self, in_channels: int, num_anchors: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
         self.objectness_logits = Conv2d(in_channels, num_anchors, 1)
         self.anchor_deltas = Conv2d(in_channels, num_anchors * 4, 1)
@@ -39,7 +41,7 @@ class RPNHead(nn.Module):
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []
         for x in features:
-            t = F.relu(self.conv(x))
+            t = F.relu(self.conv(x if self.dtype is None else x.to(self.dtype)))
             logits.append(self.objectness_logits(t))
             deltas.append(self.anchor_deltas(t))
         return logits, deltas
@@ -55,11 +57,11 @@ class RPNOutput:
 
 class RPN(nn.Module):
     def __init__(self, cfg: RPNConfig, anchor_cfg: AnchorConfig,
-                 in_channels: int):
+                 in_channels: int, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.anchor_cfg = anchor_cfg
-        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios))
+        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios), dtype)
 
     def forward(self, features: Dict[str, torch.Tensor],
                 image_sizes: torch.Tensor, gt: Optional[GtInstances] = None,

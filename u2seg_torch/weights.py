@@ -5,7 +5,8 @@ the JAX package's initializer for that layer (biases zero, norms identity).
 
 ``from_jax(params, batch_stats)`` takes the JAX package's variable trees as
 nested dicts of arrays and returns the port's ``state_dict`` (detectron2
-names), for any of the six meta-architectures. For PanopticFPN it inverts
+names), for any of the six meta-architectures over any backbone (ResNet,
+ViTDet, the RegNet, Swin and MViT trunks under the FPN). For PanopticFPN it inverts
 ``convert_d2_panoptic_fpn`` of the JAX package's checkpoint module. The
 layout changes:
 
@@ -19,7 +20,13 @@ layout changes:
   res5 down to res2, in a box head per conv, in a dense head the class
   tower's then the box tower's;
 - the dense heads' towers are detectron2 Sequentials: a conv at every
-  second slot, or every third with a norm between conv and relu.
+  second slot, or every third with a norm between conv and relu;
+- the trunks: Dense kernels transposed, LayerNorm ``scale`` -> ``weight``,
+  ViT's ``pos_embed`` kept as it is ((1, gh, gw, dim), NHWC: its shape is
+  the grid the model was built for), Swin's ``rel_pos_bias`` ->
+  ``relative_position_bias_table``, ViTDet's pyramid transposed convs
+  flipped as above; a RegNet block's norms numbered a, b, c, proj; MViT's
+  ``s{stage}_b{i}`` numbered across stages.
 
 ``dino_from_jax(params)`` does the same for the JAX ``DinoViT`` tree: it
 inverts ``convert_dino_vit`` (the patch kernel (p, p, 3, D) -> (D, 3, p, p),
@@ -55,6 +62,20 @@ def _fans(weight: torch.Tensor, transposed: bool = False):
     return cin * rf, cout * rf
 
 
+# the transformer trunks (ViT, Swin, MViT) and ViTDet's pyramid: flax's
+# default initializer (lecun normal) for their Dense, patch and transposed
+# convs, normal(0.02) for ``pos_embed`` and the relative position tables
+_TRANSFORMER_TRUNKS = ("backbone.net.", "backbone.bottom_up.")
+_TABLES = ("pos_embed", "relative_position_bias_table")
+
+
+def _lecun(name: str, mod: nn.Module) -> bool:
+    if isinstance(mod, nn.ConvTranspose2d):
+        return name.startswith("backbone.simfp_")
+    return name.startswith(_TRANSFORMER_TRUNKS) and (
+        type(mod) is nn.Linear or name.endswith("patch_embed.proj"))
+
+
 def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     """Draw every weight with the JAX package's initializer, from a CPU
     generator seeded with ``seed`` (same numbers on any machine)."""
@@ -63,7 +84,7 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, (BatchNorm2d, GroupNorm)):
+            if isinstance(mod, (BatchNorm2d, GroupNorm, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)
                 if isinstance(mod, BatchNorm2d):
@@ -74,13 +95,19 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 continue
             w = mod.weight
             fan_in, fan_out = _fans(w, isinstance(mod, nn.ConvTranspose2d))
-            if name.startswith(("proposal_generator.", "head.")) or name.endswith(
+            if _lecun(name, mod):
+                # variance_scaling(1.0, "fan_in", "truncated_normal")
+                w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), std=1.0,
+                                                    a=-2.0, b=2.0, generator=g)
+                        * math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+            elif name.startswith(("proposal_generator.", "head.")) or name.endswith(
                     ("cls_score", "sem_seg_head.predictor")):
                 # RPN, dense heads, classifiers: normal(0.01)
                 w.copy_(torch.randn(w.shape, generator=g) * 0.01)
             elif name.endswith(("bbox_pred", "mask_head.predictor")):
                 w.copy_(torch.randn(w.shape, generator=g) * 0.001)
-            elif ".fpn_" in name or ".top_block." in name or isinstance(mod, Linear):
+            elif (".fpn_" in name or ".top_block." in name or ".simfp_" in name
+                  or isinstance(mod, Linear)):
                 # glorot / fan_avg uniform
                 lim = math.sqrt(6.0 / (fan_in + fan_out))
                 w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * lim)
@@ -90,6 +117,9 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                         * math.sqrt(2.0 / fan_out))
             if mod.bias is not None:
                 mod.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith(_TABLES):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
         for mod in model.modules():
             if isinstance(mod, DenseHead):
                 # the classifier starts at the prior probability
@@ -109,6 +139,18 @@ def _np(x) -> np.ndarray:
 # convert_d2_panoptic_fpn reorders fc1 rows for a 7 x 7 pooled input
 _FC1_RESOLUTION = 7
 _NORM_KINDS = ("BatchNorm", "FrozenBatchNorm", "GroupNorm")
+
+
+def _transformer_block(blk, dst, ln, fc, attn=("qkv", "proj")):
+    """norm1, attention Dense layers, norm2, mlp_fc1/2 of a flax block ->
+    ``dst.{norm1,attn.*,norm2,mlp.fc1,mlp.fc2}``."""
+    ln(dst + ".norm1", blk["norm1"])
+    ln(dst + ".norm2", blk["norm2"])
+    for name in attn:
+        fc(f"{dst}.attn.{name}", blk["attn"][name])
+    fc(dst + ".mlp.fc1", blk["mlp_fc1"])
+    fc(dst + ".mlp.fc2", blk["mlp_fc2"])
+
 
 
 def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
@@ -150,25 +192,93 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
             tree = tree.get(k, {})
         return tree
 
-    # backbone.bottom_up
-    bp = params["backbone"]["bottom_up"]
-    bs = scope(batch_stats, "backbone", "bottom_up")
+    def ln(dst, tree):
+        sd[dst + ".weight"] = _np(tree["scale"])
+        sd[dst + ".bias"] = _np(tree["bias"])
+
+    bb = params["backbone"]
     pre = "backbone.bottom_up"
-    conv(f"{pre}.stem.conv1", bp["stem"]["conv1"])
-    norm(f"{pre}.stem.conv1.norm", bp["stem"], bs.get("stem", {}), 0)
-    for key, blk in bp.items():
-        m = re.fullmatch(r"(res\d)_(\d+)", key)
-        if not m:
-            continue
-        dst = f"{pre}.{m.group(1)}.{m.group(2)}"
-        names = ["conv1", "conv2", "conv3"] + (["shortcut"] if "shortcut" in blk else [])
-        for ci, cname in enumerate(names):
-            conv(f"{dst}.{cname}", blk[cname])
-            norm(f"{dst}.{cname}.norm", blk, bs.get(key, {}), ci)
+    if "bottom_up" in bb:                 # ResNet
+        bp = bb["bottom_up"]
+        bs = scope(batch_stats, "backbone", "bottom_up")
+        conv(f"{pre}.stem.conv1", bp["stem"]["conv1"])
+        norm(f"{pre}.stem.conv1.norm", bp["stem"], bs.get("stem", {}), 0)
+        for key, blk in bp.items():
+            m = re.fullmatch(r"(res\d)_(\d+)", key)
+            if not m:
+                continue
+            dst = f"{pre}.{m.group(1)}.{m.group(2)}"
+            names = ["conv1", "conv2", "conv3"] + (["shortcut"] if "shortcut" in blk else [])
+            for ci, cname in enumerate(names):
+                conv(f"{dst}.{cname}", blk[cname])
+                norm(f"{dst}.{cname}.norm", blk, bs.get(key, {}), ci)
+    elif "vit" in bb:                     # ViTDet: ``vit`` + ``sfp``
+        vp = bb["vit"]
+        conv("backbone.net.patch_embed.proj", vp["patch_embed"])
+        sd["backbone.net.pos_embed"] = _np(vp["pos_embed"])      # (1, gh, gw, dim)
+        for key, blk in vp.items():
+            if re.fullmatch(r"block\d+", key):
+                _transformer_block(blk, f"backbone.net.blocks.{key[5:]}", ln, fc)
+        sfp = bb["sfp"]
+        for lvl, first in ((2, 4), (3, 1), (4, 0), (5, 1)):
+            dst = f"backbone.simfp_{lvl}"
+            if lvl == 2:
+                deconv(f"{dst}.0", sfp["p2_up1"])
+                ln(f"{dst}.1", sfp["p2_ln_up"])
+                deconv(f"{dst}.3", sfp["p2_up2"])
+            elif lvl == 3:
+                deconv(f"{dst}.0", sfp["p3_up1"])
+            for i, (cname, nname) in enumerate((("lateral", "ln1"), ("output", "ln2"))):
+                conv(f"{dst}.{first + i}", sfp[f"p{lvl}_{cname}"])
+                ln(f"{dst}.{first + i}.norm", sfp[f"p{lvl}_{nname}"])
+    elif "stem" in bb["trunk"]:           # RegNet: a block's norms a, b, c, proj
+        tp = bb["trunk"]
+        ts = scope(batch_stats, "backbone", "trunk")
+        conv(f"{pre}.stem", tp["stem"])
+        norm(f"{pre}.stem.norm", tp, ts, 0)
+        for key, blk in tp.items():
+            m = re.fullmatch(r"s(\d+)_b(\d+)", key)
+            if not m:
+                continue
+            dst = f"{pre}.s{m.group(1)}.{m.group(2)}"
+            for ci, cname in enumerate(("a", "b", "c", "proj")):
+                if cname in blk:
+                    conv(f"{dst}.{cname}", blk[cname])
+                    norm(f"{dst}.{cname}.norm", blk, ts.get(key, {}), ci)
+    elif "patch_norm" in bb["trunk"]:     # Swin
+        tp = bb["trunk"]
+        conv(f"{pre}.patch_embed.proj", tp["patch_embed"])
+        ln(f"{pre}.patch_embed.norm", tp["patch_norm"])
+        for key, blk in tp.items():
+            m = re.fullmatch(r"stage(\d+)_block(\d+)", key)
+            if m:
+                dst = f"{pre}.layers.{m.group(1)}.blocks.{m.group(2)}"
+                _transformer_block(blk, dst, ln, fc)
+                sd[dst + ".attn.relative_position_bias_table"] = _np(
+                    blk["attn"]["rel_pos_bias"])
+            elif re.fullmatch(r"merge\d+", key):
+                dst = f"{pre}.layers.{key[5:]}.downsample"
+                ln(dst + ".norm", blk["norm"])
+                sd[dst + ".reduction.weight"] = _np(blk["reduction"]["kernel"]).T
+            elif re.fullmatch(r"res\d_out_norm", key):
+                ln(f"{pre}.norm{int(key[3]) - 2}", blk)
+    else:                                 # MViT: blocks numbered across stages
+        tp = bb["trunk"]
+        conv(f"{pre}.patch_embed.proj", tp["patch_embed"])
+        keys = sorted((k for k in tp if re.fullmatch(r"s\d+_b\d+", k)),
+                      key=lambda k: tuple(int(v) for v in re.findall(r"\d+", k)))
+        for n, key in enumerate(keys):
+            blk, dst = tp[key], f"{pre}.blocks.{n}"
+            _transformer_block(blk, dst, ln, fc, attn=("q", "k", "v", "proj"))
+            if "shortcut_proj" in blk:
+                fc(dst + ".shortcut_proj", blk["shortcut_proj"])
+        for key, tree in tp.items():
+            if re.fullmatch(r"res\d_norm", key):
+                ln(f"{pre}.{key}", tree)
 
     # backbone FPN: norms numbered in build order (res5 lateral, output, ...);
     # p6 / p7 of the RetinaNet top block
-    fp = params["backbone"]["fpn"]
+    fp = bb.get("fpn", {})
     fs = scope(batch_stats, "backbone", "fpn")
     n_idx = 0
     for stage in ("res5", "res4", "res3", "res2"):
