@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -194,7 +194,35 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    dense heads, RPN and sem-seg head on the CPU trunk's features, and one
    train forward's losses; Mask R-CNN over tiny ViTDet, Swin, MViT and
    RegNet trunks also compares the trunks' pyramids (see ``phase_zoo_cpu``
-   for the tolerances).
+   for the tolerances);
+23. augment: ``train_net.main`` on u2seg_R50_800.yaml with
+   ``input.rotation_enabled=True`` (RandomRotation through the OpenCV-free
+   warp of ``data/warp.py``), ims_per_batch 2, 4 loader threads, over the
+   synthetic files of phase train_net, 4 steps: finite losses and 4 K1 + 4
+   K3 launches per step. Prints the mapper's ms per image with and without
+   rotation, the step time, the loader's wait, and ``RandomExtent`` on the
+   same images (shapes and labels checked);
+24. semisup: FixMatch on the port's DINO ViT-B/16 (f32, 224x224) with a
+   linear head over 800 clusters: 8 labeled + 56 weak + 56 strong images per
+   step (mu 7, one concatenated forward), the strong views from
+   ``randaugment_mc`` on the host; 4 steps with the EMA, then 2 fine-tune
+   steps with the trunk frozen (the trunk must be unchanged). Prints step
+   ms, RandAugment ms per image and peak memory;
+25. rotated: ``multilevel_roi_align_rotated`` on p2-p5 of an 800x1216 image
+   (C=256, f32, R=1000, s=7) against the CPU at 1e-4 x max, ``nms_rotated``
+   over 1000 f64 boxes exactly against the CPU, ``RotatedCOCOEvaluator`` on
+   the ground truth given as predictions (AP 100); ms of each;
+26. projects: ``ModulatedDeformConv`` 3x3 at res3 of an 800x1344 image (b=2,
+   128 channels, 100x168) forward and backward, equal to ``F.conv2d`` at
+   1e-4 with zero offsets and unit masks; DeepLabV3+ and Panoptic-DeepLab
+   heads over the port's R50 trunk at b=2, 512x1024, 19 classes (forward,
+   loss, backward, grouping and fusion, ids in range); Mask R-CNN with BN
+   heads (``mask_rcnn_bn_head``, b=2 at 800x1344): one train step (2 K1 + 2
+   K3), then an eval forward of its weights under ``BNBatchStats`` (2 K1);
+   ShuffleBN over 2 gloo ranks on the card (each rank gets its own rows
+   back);
+27. projects_cpu: tiny configs of each new module on the card against the
+   CPU (f32, TF32 off, 1e-4 x max; grouping and fusion exact).
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -3756,11 +3784,692 @@ def phase_zoo_cpu(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The twelfth slice: rotation augmentation, FixMatch, rotated boxes, the
+# project heads and rethinking-BN
+# ---------------------------------------------------------------------------
+
+AUGMENT_STEPS = 4
+SEMISUP_LABELED, SEMISUP_MU, SEMISUP_CLUSTERS, SEMISUP_SIDE = 8, 7, 800, 224
+SEMISUP_STEPS, FINETUNE_STEPS = 4, 2
+ROTATED_HW, ROTATED_R, ROTATED_NMS = (800, 1216), 1000, 1000
+DEFORM_SHAPE = (2, 128, 100, 168)            # res3 of an 800x1344 image, b=2
+DEEPLAB_HW, DEEPLAB_CLASSES = (512, 1024), 19  # DeepLab's Cityscapes crop
+CITYSCAPES_THINGS = tuple(range(11, 19))     # person ... bicycle
+MASK_RCNN_YAML = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def phase_augment(dev, steps: int = AUGMENT_STEPS):
+    """``train_net.main`` on u2seg_R50_800.yaml with ``input.rotation_enabled
+    =True`` (RandomRotation in [-30, 30] degrees, expand, after the resize),
+    ims_per_batch 2, 4 loader threads, over 32 files of
+    ``write_synthetic_u2seg_train``: ``steps`` iterations with finite losses
+    and 4 K1 + 4 K3 launches each. Also the mapper's ms per image with and
+    without rotation, and ``RandomExtent`` on the same images."""
+    import tempfile
+
+    from u2seg_torch.config import load_config
+    from u2seg_torch.data import transforms as T
+    from u2seg_torch.data.coco import load_coco_json, load_sem_seg, merge_to_panoptic
+    from u2seg_torch.data.image_io import read_image
+    from u2seg_torch.testing import write_synthetic_u2seg_train
+    from u2seg_torch.tools import train_net
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "datasets")
+        ds = write_synthetic_u2seg_train(data, TRAIN_NET_SIZES, 800, seed=21)
+        forget_dataset(ds.dataset)
+        base = [f"datasets.root={data}", "solver.ims_per_batch=2", "dataloader.num_workers=4",
+                f"output_dir={os.path.join(tmp, 'out')}", f"datasets.train=[{ds.dataset}]"]
+        rot = ["input.rotation_enabled=True"]
+        cfg = load_config(U2SEG_YAML, base + rot)
+        augs = T.build_augmentation(cfg.input, True).augs
+        if not any(isinstance(a, T.RandomRotation) for a in augs):
+            raise AssertionError(f"no RandomRotation in {augs}")
+        dicts = merge_to_panoptic(load_coco_json(ds.instances_json, ds.image_dir),
+                                  load_sem_seg(ds.sem_seg_dir, ds.image_dir))
+        stages = {"rotation": mapper_stages(cfg, dicts[:8]),
+                  "plain": mapper_stages(load_config(U2SEG_YAML, base), dicts[:8])}
+        # RandomExtent on the same images: image linear, segmentation nearest
+        ext, rng = T.RandomExtent((0.8, 1.2), (0.2, 0.2)), np.random.RandomState(0)
+        ext_ms, ext_ok = [], True
+        for d in dicts[:8]:
+            img = read_image(d["file_name"])
+            t0 = time.perf_counter()
+            t = ext.get_transform(img, rng)
+            out = t.apply_image(img)
+            seg = t.apply_segmentation(np.zeros(img.shape[:2], np.uint8) + 7)
+            ext_ms.append((time.perf_counter() - t0) * 1e3)
+            ext_ok &= (out.shape == tuple(t.output_size) + (3,) and out.dtype == np.uint8
+                       and seg.shape == tuple(t.output_size) and set(np.unique(seg)) <= {0, 7})
+        res.update(mapper_ms=stages, extent_ms=float(np.mean(ext_ms)), extent_ok=bool(ext_ok))
+        log(f"[augment] DatasetMapper on one thread, ms per image (8 images): with rotation "
+            f"total {stages['rotation']['total']:.1f} (augment {stages['rotation']['augment']:.1f}, "
+            f"instances {stages['rotation']['instances']:.1f}), without "
+            f"{stages['plain']['total']:.1f} (augment {stages['plain']['augment']:.1f}, "
+            f"instances {stages['plain']['instances']:.1f}); RandomExtent (image + segmentation) "
+            f"{res['extent_ms']:.1f} ms per image, shapes and labels "
+            f"{'ok' if ext_ok else 'WRONG'}")
+        argv = ["--config-file", U2SEG_YAML, "--max-iter", str(steps)] + base + rot
+        torch.cuda.reset_peak_memory_stats(dev)
+        with loader_probe() as probe:
+            reset_kernel_counts()                        # the main path starts
+            t0 = time.perf_counter()
+            tr = train_net.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            end = kernel_counts()                        # the main path ends
+            per_step = per_step_launches(probe.loaders[0], end)
+            totals = [v for v, _ in tr.storage.history("total_loss").values()]
+            timer = [v * 1e3 for v, _ in tr.storage.history("time").values()]
+            waits, bad = probe.loaders[0].waits, probe.loaders[0].bad
+            probe.loaders[0].close()
+            del tr
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    res.update(steps=per_step, totals=totals, timer_ms=timer, wait_ms=waits, train_s=train_s,
+               peak_mib=peak, launches=dict(k1=sum(s[0] for s in per_step),
+                                            k3=sum(s[1] for s in per_step)))
+    problems = []
+    if not (len(totals) == steps and all(np.isfinite(totals))):
+        problems.append(f"losses {totals}")
+    if len(per_step) != steps or any(s != (4, 4) for s in per_step):
+        problems.append(f"K1/K3 launches per step {per_step}")
+    if bad or not ext_ok:
+        problems.append(f"batches out of range {bad}, extent ok {ext_ok}")
+    log(f"[augment] train_net.main with input.rotation_enabled=True (u2seg_R50_800.yaml, bf16, "
+        f"b=2, 4 loader threads): {steps} steps in {train_s:.1f} s (build included), total "
+        f"losses " + ", ".join(f"{v:.4f}" for v in totals)
+        + f"; IterationTimer ms " + ", ".join(f"{v:.1f}" for v in timer)
+        + f"; the trainer's wait for data per step " + ", ".join(f"{v:.1f}" for v in waits)
+        + f" ms; K1/K3 launches per step {per_step}; peak {peak:.0f} MiB "
+        + ("ok" if not problems else "FAIL " + "; ".join(problems)))
+    if problems:
+        raise AssertionError("augment failed: " + "; ".join(problems))
+    return res
+
+
+def _normalise(images: np.ndarray, dev) -> torch.Tensor:
+    """uint8 (N, H, W, 3) -> f32 (N, 3, H, W) with the ImageNet statistics."""
+    x = (images.astype(np.float32) - IMAGENET_MEAN) / IMAGENET_STD
+    return torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).to(dev)
+
+
+class _DinoClassifier(torch.nn.Module):
+    """The port's DINO ViT and a linear head over the [CLS] feature."""
+
+    def __init__(self, vit, head):
+        super().__init__()
+        self.vit, self.head = vit, head
+
+    def forward(self, x):
+        return self.head(self.vit(x)[0])
+
+
+class _DinoTrunk(torch.nn.Module):
+    def __init__(self, vit):
+        super().__init__()
+        self.vit = vit
+
+    def forward(self, x):
+        return self.vit(x)[0]
+
+
+def phase_semisup(dev):
+    """FixMatch on the port's DINO ViT-B/16 (dim 768, depth 12, 12 heads, f32,
+    224x224) with a linear head over 800 clusters: 8 labeled images and 56
+    weak + 56 strong unlabeled ones per step (mu = 7, one concatenated
+    forward), the strong views from ``randaugment_mc`` on the host, 4 steps
+    with the EMA; then 2 fine-tune steps with the trunk frozen. No hand
+    kernel lies on this path (the JAX package's is XLA too)."""
+    from u2seg_torch.pseudo.dino import DinoViT, seeded_dino_state
+    from u2seg_torch.pseudo.semisup import (FixMatchConfig, make_finetune_train_step,
+                                            make_fixmatch_train_step, randaugment_mc)
+
+    rng = np.random.RandomState(31)
+    side, nl, nu = SEMISUP_SIDE, SEMISUP_LABELED, SEMISUP_LABELED * SEMISUP_MU
+    vit = seeded_dino_state(DinoViT(16, 768, 12, 12, facet="out", img_size=side), seed=0)
+    head = torch.nn.Linear(vit.dim, SEMISUP_CLUSTERS)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        head.weight.copy_(torch.randn(head.weight.shape, generator=g) * 0.05)
+        head.bias.zero_()
+    model = _DinoClassifier(vit, head).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.03, momentum=0.9)
+    # a low threshold: a seeded 800-way head is never 0.95 sure
+    step = make_fixmatch_train_step(model, opt, FixMatchConfig(threshold=0.002))
+    pool = np.stack([scene(rng, side, side) for _ in range(32)]).astype(np.uint8)
+    labeled = pool[:nl]
+    targets = torch.from_numpy(rng.randint(0, SEMISUP_CLUSTERS, nl)).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, ra_s, ra_n = [], 0.0, 0
+    for i in range(SEMISUP_STEPS):
+        raw = pool[rng.randint(0, len(pool), nu)]
+        weak = np.where(rng.rand(nu)[:, None, None, None] < 0.5, raw[:, :, ::-1], raw)
+        t0 = time.perf_counter()
+        strong = np.stack([randaugment_mc(w, rng) for w in weak])
+        ra_s += time.perf_counter() - t0
+        ra_n += nu
+        xs = [_normalise(a, dev) for a in (labeled, weak, strong)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(xs[0], targets, xs[1], xs[2])
+        torch.cuda.synchronize()
+        rows.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                         **{k: float(v) for k, v in out.items()}))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    params = dict(model.named_parameters())
+    ema_gap = max(float((step.ema_params[k] - p.detach()).abs().max()) for k, p in params.items())
+
+    trunk, ft_head = _DinoTrunk(model.vit), torch.nn.Linear(vit.dim, SEMISUP_CLUSTERS).to(dev)
+    ft_opt = torch.optim.SGD(list(trunk.parameters()) + list(ft_head.parameters()),
+                             lr=0.01, momentum=0.9)
+    ft = make_finetune_train_step(trunk, ft_head, ft_opt, freeze_backbone=True)
+    before = {k: v.detach().clone() for k, v in trunk.state_dict().items()}
+    head0 = ft_head.weight.detach().clone()
+    ft_rows = []
+    for i in range(FINETUNE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ft(xs[0], targets)
+        torch.cuda.synchronize()
+        ft_rows.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(m["loss"])))
+    frozen = all(torch.equal(v, trunk.state_dict()[k]) for k, v in before.items())
+    head_moved = not torch.equal(head0, ft_head.weight)
+    res = dict(steps=rows, finetune=ft_rows, peak_mib=peak, ema_gap=ema_gap,
+               randaugment_ms=ra_s * 1e3 / ra_n, trunk_frozen=frozen, head_moved=head_moved)
+    ok = (all(np.isfinite(r["loss"]) and np.isfinite(r["loss_u"]) for r in rows)
+          and all(np.isfinite(r["loss"]) for r in ft_rows) and frozen and head_moved
+          and 0 < ema_gap < 1 and any(r["mask_rate"] > 0 for r in rows))
+    log(f"[semisup] FixMatch, DINO ViT-B/16 (f32, {side}x{side}) + linear head over "
+        f"{SEMISUP_CLUSTERS} clusters, {nl} labeled + {nu} weak + {nu} strong per step: step ms "
+        + ", ".join(f"{r['ms']:.1f}" for r in rows) + "; loss "
+        + ", ".join(f"{r['loss']:.4f}" for r in rows) + " (mask rate "
+        + ", ".join(f"{r['mask_rate']:.3f}" for r in rows)
+        + f"); RandAugmentMC on the host {res['randaugment_ms']:.2f} ms per image; EMA - params "
+        f"max {ema_gap:.2e}; peak {peak:.0f} MiB; fine-tune with the trunk frozen, {nl} images: "
+        + ", ".join(f"{r['ms']:.1f} ms loss {r['loss']:.4f}" for r in ft_rows)
+        + f", trunk unchanged {frozen}, head moved {head_moved} " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"semisup failed: {res}")
+    del model, trunk
+    torch.cuda.empty_cache()
+    return res
+
+
+def rotated_inputs(rng, n: int, h: int, w: int, dtype=np.float32) -> np.ndarray:
+    """n rotated boxes (cx, cy, w, h, angle) over an h x w image, 8-400 px
+    sides, any angle."""
+    side = np.exp(rng.uniform(np.log(8), np.log(400), (n, 2)))
+    return np.concatenate([rng.uniform(0, w, (n, 1)), rng.uniform(0, h, (n, 1)), side,
+                           rng.uniform(-180, 180, (n, 1))], 1).astype(dtype)
+
+
+def phase_rotated(dev):
+    """``multilevel_roi_align_rotated`` on p2-p5 of an 800x1216 image (C=256,
+    f32, R=1000, s=7) against the CPU at 1e-4 x max; ``nms_rotated`` over 1000
+    boxes (f64, so that no IoU lies within rounding of the threshold on one
+    device only) exactly against the CPU; ``RotatedCOCOEvaluator`` on the
+    ground truth given as predictions (AP 100)."""
+    from u2seg_torch.evaluation import RotatedCOCOEvaluator
+    from u2seg_torch.evaluation.coco_api import COCO
+    from u2seg_torch.ops.roi_align import multilevel_roi_align_rotated
+    from u2seg_torch.structures.rotated_boxes import nms_rotated
+
+    rng = np.random.RandomState(41)
+    h, w = ROTATED_HW
+    strides = (4, 8, 16, 32)
+    feats = [torch.from_numpy(rng.randn(1, h // s, w // s, 256).astype(np.float32))
+             for s in strides]
+    rois = torch.from_numpy(rotated_inputs(rng, ROTATED_R, h, w))
+    bidx = torch.zeros(ROTATED_R, dtype=torch.int32)
+    dfeats = [f.to(dev) for f in feats]
+    drois, dbidx = rois.to(dev), bidx.to(dev)
+    fn = lambda: multilevel_roi_align_rotated(dfeats, drois, dbidx, 7, strides)  # noqa: E731
+    got = fn()
+    ms = cuda_ms(fn, iters=5)
+    t0 = time.perf_counter()
+    ref = multilevel_roi_align_rotated(feats, rois, bidx, 7, strides)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got.cpu() - ref).abs().max())
+    pool_ok = err <= F32_TOL * float(ref.abs().max())
+
+    boxes = rotated_inputs(rng, ROTATED_NMS, h, w, np.float64)
+    boxes[:, 2:4] = np.minimum(boxes[:, 2:4], 160)
+    boxes[:, :2] = boxes[:, :2] * 0.4 + 200              # crowded: many overlaps
+    scores = rng.rand(ROTATED_NMS)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    nfn = lambda: nms_rotated(tb.to(dev), ts.to(dev), 0.5, 300)  # noqa: E731
+    keep, valid = nfn()
+    nms_ms = cuda_ms(nfn, iters=3, warmup=1)
+    rkeep, rvalid = nms_rotated(tb, ts, 0.5, 300)
+    nms_ok = torch.equal(keep.cpu(), rkeep) and torch.equal(valid.cpu(), rvalid)
+
+    images, anns = [], []
+    for img in range(1, 11):
+        images.append({"id": img, "height": h, "width": w})
+        for bb in rotated_inputs(rng, 20, h, w, np.float64):
+            anns.append({"id": len(anns) + 1, "image_id": img, "category_id": 1 + len(anns) % 3,
+                         "iscrowd": 0, "bbox": [float(v) for v in bb],
+                         "area": float(bb[2] * bb[3])})
+    gt = {"images": images, "annotations": anns,
+          "categories": [{"id": i, "name": str(i)} for i in (1, 2, 3)]}
+    ev = RotatedCOCOEvaluator(COCO(gt), mode="supervised")
+    t0 = time.perf_counter()
+    for img in images:
+        mine = [a for a in anns if a["image_id"] == img["id"]]
+        ev.process([{"image_id": img["id"]}], [{"instances": {
+            "boxes": np.array([a["bbox"] for a in mine]),
+            "scores": np.linspace(0.9, 0.1, len(mine)),
+            "classes": np.array([a["category_id"] for a in mine])}}])
+    ap = ev.evaluate()["bbox"]["AP"]
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    ok = pool_ok and nms_ok and abs(ap - 100.0) < 1e-6
+    res = dict(pool_ms=ms, pool_cpu_ms=cpu_ms, pool_max_abs_err=err, nms_ms=nms_ms,
+               nms_kept=int(valid.sum()), eval_ms=eval_ms, ap=ap)
+    log(f"[rotated] multilevel_roi_align_rotated p2-p5 of {h}x{w}, C=256 f32, R={ROTATED_R}, "
+        f"s=7: {ms:.3f} ms on the card, {cpu_ms:.0f} ms on the CPU, max|card - CPU| {err:.2e} "
+        f"(max|CPU| {float(ref.abs().max()):.2f}); nms_rotated of {ROTATED_NMS} f64 boxes at 0.5: "
+        f"{nms_ms:.2f} ms, {res['nms_kept']} kept, equal to the CPU {nms_ok}; "
+        f"RotatedCOCOEvaluator on the ground truth of 10 images x 20 boxes: AP {ap:.4f} in "
+        f"{eval_ms:.0f} ms " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"rotated failed: {res}")
+    del dfeats
+    torch.cuda.empty_cache()
+    return res
+
+
+def _deform_check(dev) -> dict:
+    from u2seg_torch.ops.deform_conv import ModulatedDeformConv
+    from u2seg_torch.weights import seeded_init
+
+    b, c, h, w = DEFORM_SHAPE
+    x = torch.randn(b, c, h, w, generator=torch.Generator().manual_seed(5)).to(dev)
+    m = seeded_init(ModulatedDeformConv(c, c), seed=3).to(dev)
+    with torch.no_grad():
+        plain = torch.nn.functional.conv2d(x, m.weight, m.bias, padding=1)
+        got = m(x)
+    err = float((got - plain).abs().max())
+    zero_ok = err <= F32_TOL * float(plain.abs().max())
+    with torch.no_grad():                                  # learned offsets and masks
+        m.offset_mask_conv.weight.normal_(0, 0.01)
+    xg = x.clone().requires_grad_()
+
+    def fwd_bwd():
+        m.zero_grad(set_to_none=True)
+        xg.grad = None
+        y = m(xg)
+        y.square().mean().backward()
+        return y
+
+    y = fwd_bwd()
+    ms = cuda_ms(fwd_bwd, iters=3, warmup=1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: m(x), iters=3, warmup=1)
+    grads_ok = all(torch.isfinite(t).all() and float(t.abs().max()) > 0
+                   for t in (xg.grad, m.weight.grad, m.offset_mask_conv.weight.grad))
+    return dict(zero_err=err, zero_ok=zero_ok, fwd_ms=fwd_ms, fwd_bwd_ms=ms,
+                grads_ok=bool(grads_ok and torch.isfinite(y).all()))
+
+
+def _deeplab_check(dev) -> dict:
+    import torch.nn.functional as F
+
+    from u2seg_torch.config import Config
+    from u2seg_torch.models.resnet import ResNet
+    from u2seg_torch.ops.aspp import resize_bilinear
+    from u2seg_torch.projects.deeplab import DeepLabV3PlusHead, hard_pixel_mining_loss
+    from u2seg_torch.projects.panoptic_deeplab import (PanopticDeepLabHead,
+                                                       group_pixels_to_instances,
+                                                       panoptic_deeplab_fusion)
+    from u2seg_torch.weights import seeded_init
+
+    rng = np.random.RandomState(51)
+    h, w = DEEPLAB_HW
+    trunk = seeded_init(ResNet(Config().model.resnet), seed=0).to(dev).train()
+    images = _normalise(np.stack([scene(rng, h, w) for _ in range(2)]).astype(np.uint8), dev)
+    targets = torch.from_numpy(rng.randint(0, DEEPLAB_CLASSES, (2, h, w))).to(dev)
+    targets[:, :32] = 255
+    out = {}
+    v3p = seeded_init(DeepLabV3PlusHead(2048, 256, DEEPLAB_CLASSES), seed=1).to(dev).train()
+    pdl = seeded_init(PanopticDeepLabHead(2048, 256, DEEPLAB_CLASSES), seed=2).to(dev).train()
+
+    def deeplab():
+        trunk.zero_grad(set_to_none=True)
+        v3p.zero_grad(set_to_none=True)
+        logits, losses = v3p(trunk(images), targets)
+        losses["loss_sem_seg"].backward()
+        return logits, losses
+
+    def panoptic():
+        trunk.zero_grad(set_to_none=True)
+        pdl.zero_grad(set_to_none=True)
+        sem, center, offset = pdl(trunk(images))
+        loss = (hard_pixel_mining_loss(resize_bilinear(sem, (h, w)), targets)
+                + F.mse_loss(torch.sigmoid(center), torch.zeros_like(center))
+                + offset.abs().mean())
+        loss.backward()
+        return sem, center, offset, loss
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, losses = deeplab()
+    out["deeplab_ms"] = cuda_ms(deeplab, iters=3, warmup=1)
+    out["deeplab_loss"] = float(losses["loss_sem_seg"].detach())
+    out["deeplab_ok"] = bool(logits.shape == (2, DEEPLAB_CLASSES, h, w)
+                             and torch.isfinite(logits).all()
+                             and all(p.grad is not None and torch.isfinite(p.grad).all()
+                                     for p in v3p.parameters()))
+    sem, center, offset, loss = panoptic()
+    out["panoptic_ms"] = cuda_ms(panoptic, iters=3, warmup=1)
+    out["panoptic_loss"] = float(loss.detach())
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    things = torch.zeros(DEEPLAB_CLASSES, dtype=torch.bool, device=dev)
+    things[list(CITYSCAPES_THINGS)] = True
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pans, n_inst = [], []
+        for i in range(2):
+            thing_mask = things[sem[i].argmax(0)]
+            ids, scores = group_pixels_to_instances(torch.sigmoid(center[i]), offset[i],
+                                                    thing_mask, center_threshold=0.0)
+            pans.append(panoptic_deeplab_fusion(sem[i], ids, things))
+            n_inst.append(int(ids.max()))
+        torch.cuda.synchronize()
+        out["group_fuse_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    labels = [p // 1000 for p in pans]
+    inst = [p % 1000 for p in pans]
+    out["instances"] = n_inst
+    out["panoptic_ok"] = bool(torch.isfinite(loss) and all(
+        int(l.min()) >= 0 and int(l.max()) < DEEPLAB_CLASSES and int(i.max()) <= 128
+        for l, i in zip(labels, inst)) and max(n_inst) > 0)
+    del trunk, v3p, pdl
+    return out
+
+
+def _bn_head_check(dev) -> dict:
+    from u2seg_torch import model_zoo
+    from u2seg_torch.models.build import build_model
+    from u2seg_torch.projects.rethinking_bn import (BatchNormBatchStats, mask_rcnn_bn_head,
+                                                    mask_rcnn_bn_head_batch_stats)
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    k1, k3 = rap.multilevel_roi_align_kernel, rap.multilevel_roi_align_backward
+    h, w = TRAIN_HW
+    cfg = mask_rcnn_bn_head(model_zoo.get_config(MASK_RCNN_YAML))
+    model = build_model(cfg, device=dev).train()
+    pools = pools_per_forward(cfg)
+    batch = zoo_train_batch(cfg, 2, h, w).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.001, momentum=0.9)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.launches = k3.launches = 0                          # the main path starts
+    t0 = time.perf_counter()
+    losses = model(batch.images, batch.image_sizes, gt=batch.gt, train=True, generator=gen)
+    sum(losses.values()).backward()
+    opt.step()
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    train_launches = (k1.launches, k3.launches)            # the main path ends
+    norms = zoo_grad_groups(model)
+    stats = [m.running_mean for n, m in model.named_modules()
+             if n.startswith("roi_heads.") and hasattr(m, "running_mean")]
+    moved = max(float(s.abs().max()) for s in stats)
+    # evaluate with batch statistics: the BN-head checkpoint loads as it is
+    ecfg = mask_rcnn_bn_head_batch_stats(model_zoo.get_config(MASK_RCNN_YAML))
+    emodel = build_model(ecfg, device=dev)
+    emodel.load_state_dict(model.state_dict(), strict=True)
+    zoo_calibrate(emodel.cfg)
+    n_bs = sum(isinstance(m, BatchNormBatchStats) for m in emodel.modules())
+    img = batch.images
+    with torch.no_grad():
+        k1.launches = k3.launches = 0                      # the eval path starts
+        t0 = time.perf_counter()
+        det = emodel(img, batch.image_sizes)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_launches = (k1.launches, k3.launches)         # the eval path ends
+    finite = all(bool(torch.isfinite(t).all()) for t in output_tensors(det))
+    out = dict(train_ms=train_ms, eval_ms=eval_ms, dtype=cfg.model.compute_dtype,
+               losses={k: float(v.detach()) for k, v in losses.items()},
+               grad_norms=norms, stats_moved=moved, batch_stats_norms=n_bs,
+               train_launches=train_launches, eval_launches=eval_launches, pools=pools,
+               detections=int(det.valid.sum()), peak_mib=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    out["ok"] = bool(all(np.isfinite(v) for v in out["losses"].values())
+                     and all(np.isfinite(v) and v > 0 for v in norms.values()) and moved > 0
+                     and n_bs == 4 + 4 and finite and out["detections"] > 0
+                     and train_launches == (pools, pools) and eval_launches == (pools, 0))
+    del model, emodel
+    return out
+
+
+def shufflebn_worker(rank: int, init: str, out_path: str):
+    """One rank of ShuffleBN in phase ``projects``: gloo with CUDA tensors;
+    this rank's rows through ``batch_shuffle`` / ``batch_unshuffle`` and a
+    BN in training mode through ``shuffled_bn``."""
+    from u2seg_torch.ops.norms import BatchNorm2d
+    from u2seg_torch.parallel import comm
+    from u2seg_torch.parallel.launch import launch
+    from u2seg_torch.projects import rethinking_bn as R
+
+    def main():
+        dev = torch.device("cuda", 0)
+        g = torch.Generator().manual_seed(100 + rank)
+        x = (torch.randn(8, 256, 14, 14, generator=g) * (1 + rank)).to(dev)
+        back, perm = R.batch_shuffle(x, torch.Generator().manual_seed(7))
+        back = R.batch_unshuffle(back, perm)
+        bn = BatchNorm2d(256).to(dev).train()
+        xg = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = R.shuffled_bn(bn, xg, torch.Generator().manual_seed(7))
+        y.square().mean().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        perms = comm.all_gather(perm.cpu().tolist())
+        res = dict(rank=comm.get_rank(), world=comm.get_world_size(), device=str(x.device),
+                   own_rows_back=bool(torch.equal(back, x)), same_perm=perms[0] == perms[1],
+                   finite=bool(torch.isfinite(y).all() and torch.isfinite(xg.grad).all()),
+                   moved=float(bn.running_mean.abs().max()), ms=ms)
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+
+    launch(main, backend="gloo", init_method=init, world_size=DDP_WORLD, rank=rank)
+
+
+def _shufflebn_check(timeout: float = 300.0) -> dict:
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rdv")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DDP_WORLD)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                   str(r), "--ddp-init", init, "--ddp-out", outs[r],
+                                   "--ddp-task", "shufflebn"],
+                                  cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(DDP_WORLD)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                log(f"[projects] ShuffleBN rank {r} exited {p.returncode}:\n{text[-6000:]}")
+                raise AssertionError(f"ShuffleBN rank {r} failed")
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    ok = all(r["own_rows_back"] and r["same_perm"] and r["finite"] and r["moved"] > 0
+             and r["device"].startswith("cuda") for r in ranks)
+    return dict(ranks=ranks, wall_s=wall_s, ok=ok)
+
+
+def phase_projects(dev):
+    """The project modules at full width: ``ModulatedDeformConv`` 3x3 at res3
+    of an 800x1344 image (b=2, 128 channels, 100x168), forward and backward,
+    equal to ``F.conv2d`` at 1e-4 with zero offsets and unit masks (TF32
+    off); DeepLabV3+ and Panoptic-DeepLab heads over the port's R50 trunk at
+    b=2, 512x1024, 19 classes (forward, loss, backward; grouping and
+    fusion); Mask R-CNN with BN heads (``mask_rcnn_bn_head``, b=2 at
+    800x1344): one train step with 2 K1 + 2 K3, then an eval forward of the
+    same weights under ``BNBatchStats`` with 2 K1; ShuffleBN over 2 gloo
+    ranks on the card."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {"deform": _deform_check(dev)}
+        d = res["deform"]
+        log(f"[projects] ModulatedDeformConv 3x3 on {DEFORM_SHAPE} f32: zero offsets and unit "
+            f"masks vs F.conv2d max|diff| {d['zero_err']:.2e}; with learned offsets forward "
+            f"{d['fwd_ms']:.2f} ms, forward + backward {d['fwd_bwd_ms']:.2f} ms, gradients "
+            f"finite and non-zero {d['grads_ok']} "
+            + ("ok" if d["zero_ok"] and d["grads_ok"] else "FAIL"))
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res["deeplab"] = dl = _deeplab_check(dev)
+    log(f"[projects] R50 trunk + DeepLabV3+ head, b=2 {DEEPLAB_HW[0]}x{DEEPLAB_HW[1]}, "
+        f"{DEEPLAB_CLASSES} classes, f32: forward + hard-pixel-mining loss + backward "
+        f"{dl['deeplab_ms']:.1f} ms (loss {dl['deeplab_loss']:.4f}); Panoptic-DeepLab head "
+        f"{dl['panoptic_ms']:.1f} ms (loss {dl['panoptic_loss']:.4f}); grouping + fusion "
+        f"{dl['group_fuse_ms']:.2f} ms per image, instances {dl['instances']}; peak "
+        f"{dl['peak_mib']:.0f} MiB " + ("ok" if dl["deeplab_ok"] and dl["panoptic_ok"] else "FAIL"))
+    torch.cuda.empty_cache()
+    res["bn_head"] = bh = _bn_head_check(dev)
+    log(f"[projects] Mask R-CNN with BN heads (4conv1fc box head, BN in box and mask heads), "
+        f"b=2 {TRAIN_HW[0]}x{TRAIN_HW[1]} {bh['dtype']}: one train step {bh['train_ms']:.1f} ms (first "
+        f"call), K1/K3 {bh['train_launches']}, losses "
+        + ", ".join(f"{k[5:]} {v:.4f}" for k, v in bh["losses"].items())
+        + f"; head BN statistics moved {bh['stats_moved']:.2e}; eval under BNBatchStats "
+        f"({bh['batch_stats_norms']} norms, the BN checkpoint loaded strict) {bh['eval_ms']:.1f} "
+        f"ms, K1/K3 {bh['eval_launches']}, {bh['detections']} detections; peak "
+        f"{bh['peak_mib']:.0f} MiB " + ("ok" if bh["ok"] else "FAIL"))
+    torch.cuda.empty_cache()
+    res["shufflebn"] = sb = _shufflebn_check()
+    log(f"[projects] ShuffleBN over {DDP_WORLD} gloo ranks on the card (8 x 256 x 14 x 14 per "
+        f"rank): own rows back "
+        + ", ".join(str(r["own_rows_back"]) for r in sb["ranks"])
+        + f", one permutation {all(r['same_perm'] for r in sb['ranks'])}, shuffled BN "
+        f"forward + backward ms " + ", ".join(f"{r['ms']:.1f}" for r in sb["ranks"])
+        + f"; {sb['wall_s']:.1f} s from spawn to exit " + ("ok" if sb["ok"] else "FAIL"))
+    problems = [k for k, ok in (("deform", d["zero_ok"] and d["grads_ok"]),
+                                ("deeplab", dl["deeplab_ok"] and dl["panoptic_ok"]),
+                                ("bn_head", bh["ok"]), ("shufflebn", sb["ok"])) if not ok]
+    if problems:
+        raise AssertionError(f"projects failed: {problems}: {res}")
+    res["launches"] = dict(k1=bh["train_launches"][0] + bh["eval_launches"][0],
+                           k3=bh["train_launches"][1])
+    return res
+
+
+def phase_projects_cpu(dev):
+    """Tiny configs of each new module, f32 with TF32 off, on the card and on
+    the CPU from the same weights and inputs: the deformable conv and its
+    gradients, ASPP (GN, BN in training mode), the DeepLabV3+ and
+    Panoptic-DeepLab heads with the loss, grouping and fusion (exact),
+    ``BatchNormBatchStats``, the rotated IoU and ROIAlignRotated."""
+    from u2seg_torch.ops.aspp import ASPP
+    from u2seg_torch.ops.deform_conv import deform_conv2d
+    from u2seg_torch.ops.norms import get_norm
+    from u2seg_torch.ops.roi_align import roi_align_rotated
+    from u2seg_torch.projects.deeplab import DeepLabV3PlusHead
+    from u2seg_torch.projects.panoptic_deeplab import (PanopticDeepLabHead,
+                                                       group_pixels_to_instances,
+                                                       panoptic_deeplab_fusion)
+    from u2seg_torch.structures.rotated_boxes import pairwise_iou_rotated
+    from u2seg_torch.weights import seeded_init
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(61)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    errs = {}
+
+    def rel(a, b):
+        b = b.detach().cpu().float()
+        return float((a.detach().cpu().float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    try:
+        x, off, wt, mask = rnd(2, 6, 9, 11), rnd(2, 18, 9, 11) * 2, rnd(5, 6, 3, 3), torch.rand(2, 9, 9, 11, generator=g)
+        outs = []
+        for d in (cpu, dev):
+            args = [t.clone().to(d).requires_grad_() for t in (x, off, wt, mask)]
+            y = deform_conv2d(args[0], args[1], args[2], mask=args[3])
+            y.square().sum().backward()
+            outs.append([y] + [a.grad for a in args])
+        errs["deform_conv2d (y, dx, doffsets, dweight, dmask)"] = max(
+            rel(a, b) for a, b in zip(outs[1], outs[0]))
+        for norm in ("GN", "BN"):
+            m = seeded_init(ASPP(16, 8, dilations=(1, 2, 3), norm=norm), seed=1).train()
+            xi = rnd(2, 16, 6, 10)
+            ref = m(xi)
+            got = m.to(dev)(xi.to(dev))
+            errs[f"ASPP {norm} train"] = rel(got, ref)
+        feats = {"res2": rnd(2, 8, 16, 24), "res5": rnd(2, 16, 2, 3)}
+        targets = torch.randint(0, 5, (2, 64, 96), generator=g)
+        head = seeded_init(DeepLabV3PlusHead(16, 8, 5, aspp_dim=16, low_dim=8, decoder_dim=16),
+                           seed=2).train()
+        ref, rl = head(feats, targets)
+        got, gl = head.to(dev)({k: v.to(dev) for k, v in feats.items()}, targets.to(dev))
+        errs["DeepLabV3+ logits"] = rel(got, ref)
+        errs["DeepLabV3+ loss"] = rel(gl["loss_sem_seg"], rl["loss_sem_seg"])
+        pan = seeded_init(PanopticDeepLabHead(16, 8, 5, decoder_dim=16, head_dim=8), seed=3)
+        ref = pan(feats)
+        got = pan.to(dev)({k: v.to(dev) for k, v in feats.items()})
+        errs["Panoptic-DeepLab sem, center, offset"] = max(rel(a, b) for a, b in zip(got, ref))
+        heat = torch.rand(24, 30, generator=g) * 0.6
+        heat[5, 7] = heat[5, 8] = 0.9
+        offs, thing = rnd(2, 24, 30) * 4, torch.rand(24, 30, generator=g) > 0.3
+        logits, thing_cls = rnd(6, 24, 30), torch.tensor([True, False, True, True, False, False])
+        ids_c, _ = group_pixels_to_instances(heat, offs, thing, max_centers=16)
+        ids_d, _ = group_pixels_to_instances(heat.to(dev), offs.to(dev), thing.to(dev), max_centers=16)
+        pan_c = panoptic_deeplab_fusion(logits, ids_c, thing_cls)
+        pan_d = panoptic_deeplab_fusion(logits.to(dev), ids_d, thing_cls.to(dev))
+        exact = torch.equal(ids_c, ids_d.cpu()) and torch.equal(pan_c, pan_d.cpu())
+        n = get_norm("BNBatchStats", 8)
+        xi = rnd(4, 8, 5, 6) * 2 + 1
+        errs["BNBatchStats eval"] = rel(n.to(dev)(xi.to(dev)), n.cpu()(xi))
+        b1, b2 = rotated_inputs(np.random.RandomState(3), 20, 64, 64), rotated_inputs(
+            np.random.RandomState(4), 15, 64, 64)
+        t1, t2 = torch.from_numpy(b1), torch.from_numpy(b2)
+        iou_err = float((pairwise_iou_rotated(t1.to(dev), t2.to(dev)).cpu()
+                         - pairwise_iou_rotated(t1, t2)).abs().max())
+        f = rnd(2, 16, 16, 8)
+        bidx = torch.randint(0, 2, (20,), generator=g)
+        errs["roi_align_rotated"] = rel(roi_align_rotated(f.to(dev), t1.to(dev), bidx.to(dev), 7, 0.25),
+                                        roi_align_rotated(f, t1, bidx, 7, 0.25))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    ok = max(errs.values()) <= F32_TOL and exact and iou_err <= 1e-5
+    log("[projects_cpu] card vs CPU, f32, TF32 off, max error / max|CPU|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; rotated IoU max|diff| {iou_err:.2e}; grouping ids and panoptic map equal {exact} "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"projects_cpu failed: {errs}, exact {exact}, iou {iou_err}")
+    return dict(errors=errs, exact=exact, iou_err=iou_err)
+
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
                   "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
-                  "zoo", "zoo_cpu"]
+                  "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -3768,9 +4477,11 @@ def main():
     ap.add_argument("--ddp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--ddp-init", help=argparse.SUPPRESS)
     ap.add_argument("--ddp-out", help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-task", default="train", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.ddp_rank is not None:              # one rank of phase ddp
-        ddp_worker(args.ddp_rank, args.ddp_init, args.ddp_out)
+    if args.ddp_rank is not None:              # one rank of phase ddp or of ShuffleBN
+        worker = shufflebn_worker if args.ddp_task == "shufflebn" else ddp_worker
+        worker(args.ddp_rank, args.ddp_init, args.ddp_out)
         return
     phases = args.phases.split(",")
     if not set(phases) <= set(all_phases):
@@ -3862,6 +4573,20 @@ def main():
         torch.cuda.empty_cache()
     if "zoo_cpu" in phases:
         report["zoo_cpu"] = phase_zoo_cpu(dev)
+    if "augment" in phases:
+        torch.cuda.empty_cache()
+        report["augment"] = phase_augment(dev)
+        torch.cuda.empty_cache()
+    if "semisup" in phases:
+        report["semisup"] = phase_semisup(dev)
+    if "rotated" in phases:
+        report["rotated"] = phase_rotated(dev)
+    if "projects" in phases:
+        torch.cuda.empty_cache()
+        report["projects"] = phase_projects(dev)
+        torch.cuda.empty_cache()
+    if "projects_cpu" in phases:
+        report["projects_cpu"] = phase_projects_cpu(dev)
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:
@@ -3874,11 +4599,15 @@ def main():
         dataset_launches = (report["dataset_eval"]["launches"]
                             + report["train_net"]["eval_k1"])
         zoo = report["zoo"]["launches"]
+        # this slice's paths: the rotation-augmented training, the BN-head Mask R-CNN
+        slice12 = [report["augment"]["launches"], report["projects"]["launches"]]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
-                        + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"])
-        bwd_launches = tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
+                        + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"]
+                        + sum(c["k1"] for c in slice12))
+        bwd_launches = (tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
+                        + sum(c["k3"] for c in slice12))
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
-               tr["backward_launches"], *(c[k] for c in loops for k in ("k1", "k3")),
+               tr["backward_launches"], *(c[k] for c in loops + slice12 for k in ("k1", "k3")),
                zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values()) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes

@@ -145,12 +145,19 @@ def test_seeded_dense_heads_start_at_the_prior():
 
 
 def test_head_shared_bn_is_a_later_slice():
+    # ported now (projects/rethinking_bn): the head builds and normalizes
+    # all levels with one set of moments, one running-statistics update
     cfg = tiny(tconfig.Config(), "RetinaNet", **{"retinanet.head_norm": "BN",
                                                  "retinanet.head_shared_bn": True})
-    with pytest.raises(NotImplementedError, match="rethinking_bn"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="rethinking_bn"):
-        DenseHead(8, 3, 1, shared_levels_bn=True)
+    assert build_model(cfg, device="cpu").head.shared_levels_bn
+    head = DenseHead(8, 3, 1, conv_dims=(8, 8), norm="BN", shared_levels_bn=True).train()
+    feats = [torch.randn(2, 8, s, s, generator=torch.Generator().manual_seed(s))
+             for s in (8, 4)]
+    head(feats)
+    bn = head.cls_subnet[1]
+    conv_out = [head.cls_subnet[0](f) for f in feats]
+    joint = torch.cat([f.permute(1, 0, 2, 3).reshape(8, -1) for f in conv_out], 1)
+    assert torch.allclose(bn.running_mean, 0.1 * joint.mean(1), atol=1e-6)
 
 
 def test_a_maxpool_fpn_config_gets_the_p6p7_backbone():

@@ -111,6 +111,38 @@ def test_mapper_matches_jax(dataset, is_train, recipe):
     assert kept > 50
 
 
+@pytest.mark.parametrize("expand", [True, False])
+def test_rotation_recipe_matches_jax_but_bounds_the_rotated_corners(dataset, expand):
+    """``input.rotation_enabled``: the image, its size and the sem-seg map
+    equal the JAX mapper's (the warp is OpenCV's bit for bit); a box is the
+    bounding box of its four rotated corners, so it holds the JAX mapper's
+    two-corner box of the same annotation (ROADMAP.md section 3)."""
+    ds, dicts = dataset
+    cfg, jcfg = _small(Config()), _small(JConfig())
+    for c in (cfg, jcfg):
+        c.input.rotation_enabled, c.input.rotation_expand = True, expand
+    m, jm = mapper.DatasetMapper(cfg, True), jmapper.DatasetMapper(jcfg, True)
+    compared = wider = 0
+    for seed in range(3):
+        for dd in dicts:
+            got = m(dd, np.random.RandomState(seed))
+            ref = jm(dd, np.random.RandomState(seed))
+            if ref is None or got is None:
+                continue
+            for k in ("image", "image_size", "sem_seg", "bucket"):
+                np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+            h, w = got["image_size"]
+            b = got["gt_boxes"][got["gt_valid"]]
+            assert (b[:, :2] >= 0).all() and (b[:, 2] <= w).all() and (b[:, 3] <= h).all()
+            mine = dict(zip(got["gt_ann_index"][got["gt_valid"]], b))
+            for i, rb in zip(ref["gt_ann_index"][ref["gt_valid"]], ref["gt_boxes"][ref["gt_valid"]]):
+                if i in mine:
+                    assert (mine[i][:2] <= rb[:2] + 1e-4).all() and (mine[i][2:] >= rb[2:] - 1e-4).all()
+                    compared += 1
+                    wider += bool((mine[i][2:] - mine[i][:2] > rb[2:] - rb[:2] + 1e-3).any())
+    assert compared > 30 and wider > 0
+
+
 def test_full_recipe_at_coco_sizes_with_off_bucket_rescale(dataset, tmp_path):
     """The default Config() on two COCO-size images: shortest edges up to
     1024 with a cap of 1333, so some draws miss every bucket and are

@@ -211,10 +211,19 @@ def test_build_augmentation_matches_jax(recipe):
 
 
 def test_rotation_raises_and_names_the_roadmap_item():
-    cfg = Config()
-    cfg.input.rotation_enabled = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.build_augmentation(cfg.input, True)
+    # rotation is ported now: the recipe builds, with the JAX package's
+    # augmentation at the JAX package's place, and warps as it does
+    cfg, jcfg = Config(), JConfig()
+    cfg.input.rotation_enabled = jcfg.input.rotation_enabled = True
+    augs = T.build_augmentation(cfg.input, True)
+    jaugs = JT.build_augmentation(jcfg.input, True)
+    assert [type(a).__name__ for a in augs.augs] == [type(a).__name__ for a in jaugs.augs]
+    assert "RandomRotation" in [type(a).__name__ for a in augs.augs]
+    rng = np.random.RandomState(3)
+    img = _image(rng, 37, 53, "u8")
+    t = augs.get_transform(img, np.random.RandomState(5))
+    jt = jaugs.get_transform(img, np.random.RandomState(5))
+    _same_image(t.apply_image(img), jt.apply_image(img))
 
 
 def test_pick_bucket_matches_jax():

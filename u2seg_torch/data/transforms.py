@@ -18,8 +18,9 @@ what OpenCV computes, by the image's type:
 - segmentation maps and masks: OpenCV's nearest neighbour
   (``resize_nearest``), bit for bit.
 
-Rotation and extent (``cv2.warpAffine``) are not ported yet:
-``build_augmentation`` raises for ``rotation_enabled``.
+Rotation and extent warp through ``data/warp.py`` (``cv2.warpAffine``,
+``cv2.getRotationMatrix2D`` and ``cv2.transform`` without OpenCV, bit for
+bit on uint8): images linear, segmentation maps nearest.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from u2seg_torch.data import warp
 
 # OpenCV's fixed-point bilinear: 11-bit coefficients (INTER_RESIZE_COEF_BITS)
 _COEF_SCALE = 2048
@@ -120,17 +123,15 @@ class Transform:
         raise NotImplementedError
 
     def apply_box(self, boxes: np.ndarray) -> np.ndarray:
-        """XYXY boxes via corner transform (axis-aligned transforms only)."""
+        """XYXY boxes: the bounding box of the four transformed corners (as
+        in detectron2). The JAX package maps two corners only, which is
+        the same for axis-aligned transforms and wrong for a rotation."""
         if len(boxes) == 0:
             return boxes
-        corners = boxes.reshape(-1, 2)
-        corners = self.apply_coords(corners.astype(np.float64))
-        b = corners.reshape(-1, 4)
-        x0 = np.minimum(b[:, 0], b[:, 2])
-        x1 = np.maximum(b[:, 0], b[:, 2])
-        y0 = np.minimum(b[:, 1], b[:, 3])
-        y1 = np.maximum(b[:, 1], b[:, 3])
-        return np.stack([x0, y0, x1, y1], axis=1)
+        idx = np.array([0, 1, 2, 1, 0, 3, 2, 3])
+        corners = np.asarray(boxes).reshape(-1, 4)[:, idx].reshape(-1, 2)
+        c = self.apply_coords(corners.astype(np.float64)).reshape(-1, 4, 2)
+        return np.concatenate([c.min(axis=1), c.max(axis=1)], axis=1)
 
     def apply_segmentation(self, seg: np.ndarray) -> np.ndarray:
         return self.apply_image(seg)
@@ -254,6 +255,94 @@ class BlendTransform(Transform):
 
     def apply_segmentation(self, seg):
         return seg
+
+
+class RotationTransform(Transform):
+    """Rotate ``angle`` degrees counter-clockwise around ``center`` (the
+    image centre by default), with detectron2's half-pixel image offset and,
+    with ``expand``, an output that holds the whole rotated image."""
+
+    def __init__(self, h: int, w: int, angle: float, expand: bool = True,
+                 center: Optional[Tuple[float, float]] = None,
+                 interp: Optional[str] = None):
+        self.h, self.w, self.angle, self.expand = h, w, angle, expand
+        image_center = np.array((w / 2, h / 2))
+        self.center = image_center if center is None else np.asarray(center)
+        self.image_center = image_center
+        self.interp = "linear" if interp is None else interp
+        abs_cos = abs(np.cos(np.deg2rad(angle)))
+        abs_sin = abs(np.sin(np.deg2rad(angle)))
+        if expand:
+            self.bound_w, self.bound_h = np.rint(
+                [h * abs_sin + w * abs_cos, h * abs_cos + w * abs_sin]).astype(int)
+        else:
+            self.bound_w, self.bound_h = w, h
+        self.rm_coords = self._rotation_matrix()
+        # the warp samples pixel centres at integer coordinates: shifting by
+        # -0.5 makes the image map agree with the geometric one
+        self.rm_image = self._rotation_matrix(offset=-0.5)
+
+    def _rotation_matrix(self, offset: float = 0.0) -> np.ndarray:
+        center = (self.center[0] + offset, self.center[1] + offset)
+        rm = warp.get_rotation_matrix_2d(center, self.angle, 1)
+        if self.expand:
+            rot_center = warp.transform(self.image_center[None, None, :] + offset, rm)[0, 0, :]
+            rm[:, 2] += (np.array([self.bound_w / 2, self.bound_h / 2]) + offset
+                         - rot_center)
+        return rm
+
+    def apply_image(self, img, interp: Optional[str] = None):
+        if len(img) == 0 or self.angle % 360 == 0:
+            return img
+        return warp.warp_affine(img, self.rm_image, (self.bound_w, self.bound_h),
+                                self.interp if interp is None else interp)
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64)
+        if len(coords) == 0 or self.angle % 360 == 0:
+            return coords
+        return warp.transform(coords[:, np.newaxis, :], self.rm_coords)[:, 0, :]
+
+    def apply_segmentation(self, seg):
+        return self.apply_image(seg, interp="nearest")
+
+
+class ExtentTransform(Transform):
+    """Resample the source rectangle ``src_rect`` (x0, y0, x1, y1; it may
+    reach past the image, where pixels read zero) onto an ``output_size``
+    (h, w) grid: PIL's EXTENT as an affine warp,
+    ``dst = (src - rect0) * scale - 0.5`` in pixel-centre terms."""
+
+    def __init__(self, src_rect: Tuple[float, float, float, float],
+                 output_size: Tuple[int, int], interp: Optional[str] = None):
+        self.src_rect = src_rect
+        self.output_size = output_size
+        self.interp = interp
+
+    def _matrix(self) -> np.ndarray:
+        x0, y0, x1, y1 = self.src_rect
+        out_h, out_w = self.output_size
+        sx = out_w / (x1 - x0)
+        sy = out_h / (y1 - y0)
+        return np.array([[sx, 0, -x0 * sx - 0.5 + 0.5 * sx],
+                         [0, sy, -y0 * sy - 0.5 + 0.5 * sy]], np.float64)
+
+    def apply_image(self, img):
+        out_h, out_w = self.output_size
+        interp = self.interp if self.interp is not None else "linear"
+        return warp.warp_affine(img, self._matrix(), (out_w, out_h), interp, 0)
+
+    def apply_coords(self, coords):
+        x0, y0, x1, y1 = self.src_rect
+        out_h, out_w = self.output_size
+        coords = coords.astype(np.float64).copy()
+        coords[:, 0] = (coords[:, 0] - x0) * (out_w / (x1 - x0))
+        coords[:, 1] = (coords[:, 1] - y0) * (out_h / (y1 - y0))
+        return coords
+
+    def apply_segmentation(self, seg):
+        out_h, out_w = self.output_size
+        return warp.warp_affine(seg, self._matrix(), (out_w, out_h), "nearest", 0)
 
 
 class TransformList(Transform):
@@ -541,6 +630,63 @@ class RandomLighting(Augmentation):
             src_weight=1.0, dst_weight=1.0)
 
 
+class RandomRotation(Augmentation):
+    """Rotate by a sampled angle (uniform in a ``range``, or a ``choice``),
+    optionally around a sampled centre relative to the image size."""
+
+    def __init__(self, angle, expand: bool = True, center=None,
+                 sample_style: str = "range", interp: Optional[str] = None):
+        assert sample_style in ("range", "choice"), sample_style
+        self.is_range = sample_style == "range"
+        if isinstance(angle, (float, int)):
+            angle = (angle, angle)
+        if center is not None and isinstance(center[0], (float, int)):
+            center = (center, center)
+        self.angle, self.expand, self.center = angle, expand, center
+        self.interp = interp
+
+    def get_transform(self, image, rng):
+        h, w = image.shape[:2]
+        center = None
+        if self.is_range:
+            angle = rng.uniform(self.angle[0], self.angle[1])
+            if self.center is not None:
+                center = (rng.uniform(self.center[0][0], self.center[1][0]),
+                          rng.uniform(self.center[0][1], self.center[1][1]))
+        else:
+            angle = self.angle[rng.randint(len(self.angle))]
+            if self.center is not None:
+                center = self.center[rng.randint(len(self.center))]
+        if center is not None:
+            center = (w * center[0], h * center[1])
+        if angle % 360 == 0:
+            return NoOpTransform()
+        return RotationTransform(h, w, angle, expand=self.expand,
+                                 center=center, interp=self.interp)
+
+
+class RandomExtent(Augmentation):
+    """Take a randomly scaled and shifted rectangle around the image centre
+    (it may reach past the image, which reads zero) at its own size."""
+
+    def __init__(self, scale_range: Tuple[float, float],
+                 shift_range: Tuple[float, float]):
+        self.scale_range = scale_range
+        self.shift_range = shift_range
+
+    def get_transform(self, image, rng):
+        h, w = image.shape[:2]
+        rect = np.array([-0.5 * w, -0.5 * h, 0.5 * w, 0.5 * h])
+        rect *= rng.uniform(self.scale_range[0], self.scale_range[1])
+        rect[0::2] += self.shift_range[0] * w * (rng.rand() - 0.5)
+        rect[1::2] += self.shift_range[1] * h * (rng.rand() - 0.5)
+        rect[0::2] += 0.5 * w
+        rect[1::2] += 0.5 * h
+        return ExtentTransform(
+            src_rect=tuple(rect),
+            output_size=(int(rect[3] - rect[1]), int(rect[2] - rect[0])))
+
+
 def _call_aug(aug: Augmentation, image, rng, extras: dict) -> Transform:
     """Invoke get_transform, forwarding only the extra inputs (sem_seg, ...)
     the augmentation declares in its ``needs`` attribute."""
@@ -570,7 +716,8 @@ class AugmentationList(Augmentation):
 def build_augmentation(cfg_input, is_train: bool) -> AugmentationList:
     """The test resize, or the training recipe: the default multi-scale
     resize (optionally after a category-area-constrained crop) or
-    large-scale jitter, then the color augmentations and the flip."""
+    large-scale jitter, then the rotation, the color augmentations and the
+    flip."""
     if not is_train:
         return AugmentationList([ResizeShortestEdge(
             (cfg_input.min_size_test,), cfg_input.max_size_test, "choice")])
@@ -589,9 +736,9 @@ def build_augmentation(cfg_input, is_train: bool) -> AugmentationList:
         augs.append(ResizeShortestEdge(
             cfg_input.min_size_train, cfg_input.max_size_train, "choice"))
     if cfg_input.rotation_enabled:
-        raise NotImplementedError(
-            "input.rotation_enabled: RandomRotation (cv2.warpAffine) is not ported "
-            "yet (ROADMAP.md, queue 1: rotation and extent transforms)")
+        augs.append(RandomRotation(
+            list(cfg_input.rotation_angles), expand=cfg_input.rotation_expand,
+            sample_style=cfg_input.rotation_sample_style))
     if cfg_input.color_aug:
         augs += [RandomBrightness(0.9, 1.1), RandomContrast(0.9, 1.1),
                  RandomSaturation(0.9, 1.1)]

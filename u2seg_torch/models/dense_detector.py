@@ -54,16 +54,16 @@ class DenseHead(nn.Module):
     """Shared classification and box towers: per level, 4 x (3x3 conv,
     optional norm, relu), then ``cls_score`` / ``bbox_pred`` (and ``ctrness``)
     3x3 convs. One norm module serves every level, so in training a BN's
-    running statistics take one update per level, as in the JAX package."""
+    running statistics take one update per level, as in the JAX package;
+    ``shared_levels_bn`` normalizes all levels with one call instead
+    (``projects.rethinking_bn.shared_levels_norm``), layer by layer."""
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int,
                  conv_dims: Sequence[int] = (256,) * 4, prior_prob: float = 0.01,
                  with_centerness: bool = False, norm: str = "",
                  shared_levels_bn: bool = False):
         super().__init__()
-        if shared_levels_bn:
-            raise NotImplementedError(
-                "head_shared_bn (projects/rethinking_bn) is not ported yet")
+        self.shared_levels_bn = shared_levels_bn and bool(norm)
         self.prior_prob = prior_prob
         for tower in ("cls_subnet", "bbox_subnet"):
             layers: List[nn.Module] = []
@@ -83,6 +83,8 @@ class DenseHead(nn.Module):
     def forward(self, features: Sequence[torch.Tensor]):
         """NCHW levels -> per-level (logits, box outputs, centerness) lists,
         NCHW f32."""
+        if self.shared_levels_bn:
+            return self._forward_shared(features)
         logits, boxes, ctr = [], [], []
         for x in features:
             x = x.float()
@@ -92,6 +94,25 @@ class DenseHead(nn.Module):
             if self.ctrness is not None:
                 ctr.append(self.ctrness(t))
         return logits, boxes, ctr
+
+
+    def _forward_shared(self, features: Sequence[torch.Tensor]):
+        """The towers layer by layer over all levels; each norm once over
+        all of them."""
+        from u2seg_torch.projects.rethinking_bn import shared_levels_norm
+
+        def tower(seq):
+            feats = [x.float() for x in features]
+            for layer in seq:
+                if isinstance(layer, (Conv2d, nn.ReLU)):
+                    feats = [layer(f) for f in feats]
+                else:
+                    feats = shared_levels_norm(layer, feats)
+            return feats
+
+        cls_feats, box_feats = tower(self.cls_subnet), tower(self.bbox_subnet)
+        return ([self.cls_score(f) for f in cls_feats], [self.bbox_pred(f) for f in box_feats],
+                [self.ctrness(f) for f in box_feats] if self.ctrness is not None else [])
 
 
 def _nms_detections(boxes, scores, classes, image_sizes, nms_thresh: float,

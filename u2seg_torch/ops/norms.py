@@ -20,6 +20,8 @@ Counterpart of ``u2seg_tpu/ops/norms.py``:
   one, it is BN. Parameter and buffer names are detectron2's (``weight``,
   ``bias``, ``running_mean``, ``running_var``), so a d2 state dict loads as
   it is.
+- ``BNBatchStats`` / ``SyncBNBatchStats``: ``projects.rethinking_bn.
+  BatchNormBatchStats`` (batch moments at eval too).
 - ``GroupNorm``: flax's formula: f32 statistics with the fast variance
   ``E[x^2] - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) *
   weight) + bias``, result cast to the activation dtype.
@@ -116,6 +118,11 @@ def get_norm(norm: Optional[str], features: int) -> Optional[nn.Module]:
         return BatchNorm2d(features, eps=1e-5, momentum=0.9,
                            frozen=norm == "FrozenBN",
                            sync=norm in ("SyncBN", "naiveSyncBN"))
+    if norm in ("BNBatchStats", "SyncBNBatchStats"):
+        from u2seg_torch.projects.rethinking_bn import BatchNormBatchStats
+
+        return BatchNormBatchStats(features, eps=1e-5, momentum=0.9,
+                                   sync=norm.startswith("Sync"))
     if norm == "GN":
         groups = 32 if features % 32 == 0 else math.gcd(32, features)
         return GroupNorm(max(groups, 1), features, eps=1e-5)

@@ -28,6 +28,14 @@ layout changes:
   flipped as above; a RegNet block's norms numbered a, b, c, proj; MViT's
   ``s{stage}_b{i}`` numbered across stages.
 
+``projects_from_jax(module, params, batch_stats)`` maps the JAX trees of the
+project modules (``ASPP``, ``DepthwiseSeparableConv``, the DeepLab and
+Panoptic-DeepLab heads, ``DeformConv`` / ``ModulatedDeformConv``,
+``BatchNormBatchStats``) onto the port module's own names, which are the
+JAX package's (``b0`` ... ``b3``, ``pool_conv``, ``project``, ``aspp``,
+``dec1``, ...): convs transposed, a deformable ``kernel`` to ``weight``, and a
+module's ``norms.{i}`` from flax's ``{BatchNorm,GroupNorm,...}_{i}``.
+
 ``dino_from_jax(params)`` does the same for the JAX ``DinoViT`` tree: it
 inverts ``convert_dino_vit`` (the patch kernel (p, p, 3, D) -> (D, 3, p, p),
 Dense kernels transposed, ``block{i}`` -> ``blocks.{i}``) and returns the
@@ -80,10 +88,16 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     """Draw every weight with the JAX package's initializer, from a CPU
     generator seeded with ``seed`` (same numbers on any machine)."""
     from u2seg_torch.models.dense_detector import DenseHead
+    from u2seg_torch.ops import deform_conv
 
     g = torch.Generator().manual_seed(seed)
+    # the project modules take flax's default conv init (lecun normal)
+    flax_default = tuple(name + "." if name else "" for name, mod in model.named_modules()
+                         if isinstance(mod, _project_types()))
     with torch.no_grad():
         for name, mod in model.named_modules():
+            if isinstance(mod, (deform_conv.DeformConv, deform_conv.ModulatedDeformConv)):
+                deform_conv.reset_deform_parameters(mod, g)
             if isinstance(mod, (BatchNorm2d, GroupNorm, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)
@@ -95,7 +109,9 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
                 continue
             w = mod.weight
             fan_in, fan_out = _fans(w, isinstance(mod, nn.ConvTranspose2d))
-            if _lecun(name, mod):
+            if name.endswith(("offset_conv", "offset_mask_conv")):
+                continue                               # zero, set with their module
+            if _lecun(name, mod) or (flax_default and name.startswith(flax_default)):
                 # variance_scaling(1.0, "fan_in", "truncated_normal")
                 w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), std=1.0,
                                                     a=-2.0, b=2.0, generator=g)
@@ -138,7 +154,7 @@ def _np(x) -> np.ndarray:
 
 # convert_d2_panoptic_fpn reorders fc1 rows for a 7 x 7 pooled input
 _FC1_RESOLUTION = 7
-_NORM_KINDS = ("BatchNorm", "FrozenBatchNorm", "GroupNorm")
+_NORM_KINDS = ("BatchNorm", "FrozenBatchNorm", "GroupNorm", "BatchNormBatchStats")
 
 
 def _transformer_block(blk, dst, ln, fc, attn=("qkv", "proj")):
@@ -374,6 +390,62 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
         if "centerness" in hp:
             conv("head.ctrness", hp["centerness"])
 
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _project_types():
+    from u2seg_torch.ops.aspp import ASPP, DepthwiseSeparableConv
+    from u2seg_torch.projects.deeplab import DeepLabV3Head, DeepLabV3PlusHead
+    from u2seg_torch.projects.panoptic_deeplab import PanopticDeepLabHead
+
+    return (ASPP, DepthwiseSeparableConv, DeepLabV3Head, DeepLabV3PlusHead,
+            PanopticDeepLabHead)
+
+
+def projects_from_jax(module: nn.Module, params: Mapping,
+                      batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """The JAX variable trees of a project module (see the module doc) ->
+    ``module``'s state dict (CPU f32 tensors). ``params`` / ``batch_stats``
+    are the module's own scopes."""
+    from u2seg_torch.ops.deform_conv import DeformConv, ModulatedDeformConv
+    from u2seg_torch.projects.rethinking_bn import BatchNormBatchStats
+
+    sd: Dict[str, np.ndarray] = {}
+
+    def flax_norm(mod) -> str:
+        if isinstance(mod, BatchNormBatchStats):
+            return "BatchNormBatchStats"
+        return "GroupNorm" if isinstance(mod, GroupNorm) else "BatchNorm"
+
+    def norm(dst, mod, ptree, stree):
+        sd[dst + "weight"] = _np(ptree["scale"])
+        sd[dst + "bias"] = _np(ptree["bias"])
+        if isinstance(mod, BatchNorm2d):
+            sd[dst + "running_mean"] = _np(stree["mean"])
+            sd[dst + "running_var"] = _np(stree["var"])
+
+    def walk(mod, dst, ptree, stree):
+        if isinstance(mod, BatchNorm2d) and not list(mod.children()):
+            norm(dst, mod, ptree, stree)
+            return
+        if isinstance(mod, (DeformConv, ModulatedDeformConv)):
+            sd[dst + "weight"] = _np(ptree["kernel"]).transpose(3, 2, 0, 1)
+            if isinstance(mod, ModulatedDeformConv):
+                sd[dst + "bias"] = _np(ptree["bias"])
+        if isinstance(mod, nn.Conv2d):
+            sd[dst + "weight"] = _np(ptree["kernel"]).transpose(3, 2, 0, 1)
+            if mod.bias is not None:
+                sd[dst + "bias"] = _np(ptree["bias"])
+            return
+        for name, child in mod.named_children():
+            if name == "norms":
+                for i, nm in enumerate(child):
+                    key = f"{flax_norm(nm)}_{i}"
+                    norm(f"{dst}norms.{i}.", nm, ptree[key], stree.get(key, {}))
+                continue
+            walk(child, f"{dst}{name}.", ptree[name], stree.get(name, {}))
+
+    walk(module, "", params, batch_stats or {})
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
