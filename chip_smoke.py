@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,demo,export,analyze,tools_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -222,7 +222,25 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    ShuffleBN over 2 gloo ranks on the card (each rank gets its own rows
    back);
 27. projects_cpu: tiny configs of each new module on the card against the
-   CPU (f32, TF32 off, 1e-4 x max; grouping and fusion exact).
+   CPU (f32, TF32 off, 1e-4 x max; grouping and fusion exact);
+28. demo: ``VisualizationDemo.run_on_image`` (the default Config() at full
+   width, seeded calibrated weights, fusion threshold 0.05, a Hungarian
+   instance mapping the phase writes) on four eval scenes (480x640,
+   427x640, 640x480, 500x375): ms per image of predict, draw (the OpenCV-free
+   visualizer) and write (Pillow JPEG), K1 launches per image (4); each
+   drawing equals a visualizer's over the same fetched predictions; then
+   ``u2seg_demo.main`` on one PNG file with ``--confidence-threshold 0.05``;
+29. export: ``export_inference`` of that model at b=1, 800x1216 on the card
+   (``torch.export``, K1 a registered op: 4 nodes), loaded in a fresh
+   process that imports ``u2seg_torch.engine.export`` and no model code:
+   export, save and load seconds, artifact MB, eager and loaded forward ms,
+   4 K1 launches per loaded call, loaded outputs against the eager
+   forward's (bit-equal, or the stated tolerance);
+30. analyze: ``tools/analyze_model`` on the default Config() at 800x1344:
+   parameters, GFLOPs per op kind, GB, seconds, 4 K1 launches;
+31. tools_cpu: the tiny config in f32 (TF32 off, K1 on the card) exported
+   and loaded on the card and on the CPU, and the demo on one image, card
+   against CPU at ``eval_cpu``'s tolerances.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -4465,11 +4483,305 @@ def phase_projects_cpu(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-31: the user-facing entry points (demo, export, analyze_model)
+# ---------------------------------------------------------------------------
+
+DEMO_SIZES = EVAL_SIZES[:4]             # 480x640, 427x640, 640x480, 500x375
+EXPORT_HW = (800, 1216)
+# a fresh process that loads an exported program with nothing of the model
+# code path: argv = artifact dir, inputs .pt, outputs .pt
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from u2seg_torch.engine.export import load_exported
+from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+
+path, inp, outp = sys.argv[1:4]
+t0 = time.perf_counter()
+fn = load_exported(path)
+load_s = time.perf_counter() - t0
+images, sizes = torch.load(inp)
+for _ in range(2):
+    fn(images, sizes)
+torch.cuda.synchronize()
+k1.launches = 0
+outs = fn(images, sizes)
+torch.cuda.synchronize()
+launches = k1.launches
+a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+a.record()
+for _ in range(5):
+    fn(images, sizes)
+b.record()
+torch.cuda.synchronize()
+torch.save([o.cpu() for o in outs], outp)
+print("CHILD " + json.dumps(dict(
+    load_s=load_s, ms=a.elapsed_time(b) / 5, launches=launches,
+    model_code_imported=any(m.startswith("u2seg_torch.models") for m in sys.modules))),
+    flush=True)
+"""
+
+
+def demo_model(dev):
+    """The default Config() at full width with seeded, calibrated weights,
+    and the fusion threshold at 0.05 (``--confidence-threshold 0.05``):
+    seeded heads score no instance above the default 0.5."""
+    from u2seg_torch.config import Config
+    from u2seg_torch.models.build import build_model
+
+    cfg = Config()
+    cfg.model.panoptic.instance_conf_thresh = cfg.model.roi_heads.score_thresh_test
+    return cfg, calibrate(build_model(cfg, device=dev, seed=0))
+
+
+def phase_demo(dev):
+    """``VisualizationDemo.run_on_image`` (predict, Hungarian remap, draw)
+    on four eval scenes, the image written with Pillow; then the CLI
+    ``u2seg_demo.main`` on one file."""
+    import tempfile
+
+    from u2seg_torch.data.image_io import write_png
+    from u2seg_torch.demo import u2seg_demo
+    from u2seg_torch.demo.predictor import VisualizationDemo
+    from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+    from u2seg_torch.utils.visualizer import Visualizer, write_image
+
+    cfg, model = demo_model(dev)
+    rng = np.random.RandomState(13)
+    imgs = [scene(rng, h, w).astype(np.uint8) for h, w in DEMO_SIZES]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        with open(os.path.join(tmp, "instance_mapping.json"), "w") as f:
+            json.dump({str(c): (7 * c) % 800 for c in range(800)}, f)
+        demo = VisualizationDemo(cfg, tmp, device=dev, model=model)
+        if demo.instance_mapping is None or demo.predictor.device.type != dev.type:
+            raise AssertionError("the demo lacks its mapping or is not on the card")
+        for im in imgs:                                   # warm-up, per bucket
+            demo.run_on_image(im)
+        torch.cuda.synchronize()
+        rows = []
+        k1.launches = 0                                   # the main path starts
+        for i, im in enumerate(imgs):
+            t0 = time.perf_counter()
+            pred = demo.predictor(im)
+            t1 = time.perf_counter()
+            drawn = demo.draw(im, pred)
+            t2 = time.perf_counter()
+            write_image(os.path.join(tmp, f"demo_{i}.jpg"), drawn)
+            t3 = time.perf_counter()
+            # the drawing again, from a visualizer over the same fetched
+            # predictions, on the host
+            segs = [dict(s, category_id=demo.instance_mapping.get(s["category_id"],
+                                                                   s["category_id"]))
+                    for s in pred["segments"]]
+            again = Visualizer(im, demo.metadata).draw_panoptic_seg(pred["panoptic"], segs)
+            things = sum(s["isthing"] for s in pred["segments"])
+            row = dict(h=im.shape[0], w=im.shape[1], predict_ms=(t1 - t0) * 1e3,
+                       draw_ms=(t2 - t1) * 1e3, write_ms=(t3 - t2) * 1e3,
+                       instances=len(pred["instances"]["scores"]), things=things,
+                       segments=len(pred["segments"]), same=bool(np.array_equal(drawn, again)))
+            rows.append(row)
+            log(f"[demo] {row['h']}x{row['w']}: predict {row['predict_ms']:.1f} ms, draw "
+                f"{row['draw_ms']:.1f} ms, write {row['write_ms']:.1f} ms; {row['instances']} "
+                f"instances, {things} thing and {row['segments'] - things} stuff segments "
+                f"drawn; equal to the visualizer over the same predictions: {row['same']} "
+                f"({smi_line()})")
+            if not (row["same"] and things > 0 and drawn.shape == im.shape):
+                raise AssertionError(f"demo image {i}: {row}")
+        launches = k1.launches                            # the main path ends
+        log(f"[demo] K1 launches {launches} over {len(imgs)} images "
+            f"({launches / len(imgs):.1f} per image; 4 expected)")
+        if launches != 4 * len(imgs):
+            raise AssertionError(f"expected {4 * len(imgs)} K1 launches, got {launches}")
+        # the command line on one file (its own seeded model: no calibration)
+        src = os.path.join(tmp, "scene.png")
+        write_png(src, imgs[0])
+        k1.launches = 0
+        t0 = time.perf_counter()
+        (_, pred, _), = u2seg_demo.main(["--config-file", "", "--input", src, "--output",
+                                        os.path.join(tmp, "out"), "--confidence-threshold",
+                                        "0.05"])
+        cli_s = time.perf_counter() - t0
+        cli_launches = k1.launches
+        log(f"[demo] u2seg_demo.main on one file: {cli_s:.2f} s with the model build, "
+            f"{len(pred['instances']['scores'])} instances, K1 launches {cli_launches}")
+        if cli_launches != 4 or not os.path.exists(os.path.join(tmp, "out", "scene.png")):
+            raise AssertionError("the demo's command line did not run its forward")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = {k: float(np.median([r[k] for r in rows])) for k in ("predict_ms", "draw_ms",
+                                                              "write_ms")}
+    log(f"[demo] median per image: predict {med['predict_ms']:.1f} ms, draw "
+        f"{med['draw_ms']:.1f} ms, write {med['write_ms']:.1f} ms ({smi_line()})")
+    return dict(rows=rows, median=med, launches=launches + cli_launches,
+                k1=launches + cli_launches, cli_s=cli_s)
+
+
+def flat_agreement(got, ref, names) -> dict:
+    """Card vs card (or card vs CPU) flat outputs of an exported forward:
+    max|a-b| / max|b| of every float output, the share of equal elements of
+    every discrete one."""
+    res = {}
+    for name, a, b in zip(names, got, ref):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            res[name] = float((a.float() - b.float()).abs().max()
+                              / b.float().abs().max().clamp(min=1e-30))
+        else:
+            res[name] = float((a == b).float().mean())
+    return res
+
+
+def phase_export(dev):
+    """``export_inference`` of the default Config() at b=1, 800x1216 on the
+    card, loaded in a fresh process that imports ``u2seg_torch`` and none of
+    its model code: seconds, MB, eager against loaded forward ms, K1 launches
+    per loaded call, outputs against the eager forward's."""
+    import subprocess
+    import tempfile
+
+    from u2seg_torch.engine.export import export_inference, load_schema
+
+    cfg, model = demo_model(dev)
+    h, w = EXPORT_HW
+    img = torch.from_numpy(scene(np.random.RandomState(14), h, w))[None].to(dev)
+    sz = torch.tensor([[h, w]], dtype=torch.int32, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        t0 = time.perf_counter()
+        program = export_inference(model, (1, h, w, 3), os.path.join(tmp, "a"), device=dev)
+        total_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.export.save(program, os.path.join(tmp, "resave.pt2"))
+        save_s = time.perf_counter() - t0
+        mb = os.path.getsize(os.path.join(tmp, "a", "model.pt2")) / 2 ** 20
+        names = [o["name"] for o in load_schema(os.path.join(tmp, "a"))["outputs"]]
+        k1_nodes = sum("multilevel_roi_align" in str(n.target) for n in program.graph.nodes)
+        del program
+        eager = [t for t in torch.utils._pytree.tree_leaves(model(img, sz, combine=True))]
+        eager_ms = cuda_ms(lambda: model(img, sz, combine=True), iters=5)
+        torch.save((img, sz), os.path.join(tmp, "in.pt"))
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, os.path.join(tmp, "a"),
+                               os.path.join(tmp, "in.pt"), os.path.join(tmp, "out.pt")],
+                              cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the exported program failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(next(ln for ln in proc.stdout.splitlines()
+                                if ln.startswith("CHILD "))[6:])
+        loaded = torch.load(os.path.join(tmp, "out.pt"))
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    agree = flat_agreement(loaded, eager, names)
+    bit_equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(loaded, eager))
+    res = dict(export_s=total_s - save_s, save_s=save_s, load_s=child["load_s"], mb=mb,
+               eager_ms=eager_ms, loaded_ms=child["ms"], launches=child["launches"],
+               k1=child["launches"], k1_nodes=k1_nodes, bit_equal=bit_equal, agree=agree,
+               model_code_imported=child["model_code_imported"])
+    log(f"[export] default Config() b=1 {h}x{w}: export {res['export_s']:.1f} s, save "
+        f"{save_s:.1f} s, load in a fresh process {res['load_s']:.1f} s, artifact {mb:.1f} MB, "
+        f"{k1_nodes} K1 nodes; forward eager {eager_ms:.2f} ms, loaded {child['ms']:.2f} ms; "
+        f"K1 launches per loaded call {child['launches']}; model code imported by the loader: "
+        f"{child['model_code_imported']} ({smi_line()})")
+    log(f"[export] loaded vs eager outputs: bit-equal {bit_equal}; " + ", ".join(
+        f"{k} {v:.3g}" for k, v in agree.items()) + " (floats: max|diff|/max; discrete: "
+        "equal share. Tolerance: bit-equal, or sem logits <= 0.05 and detection slots "
+        "(valid, class) >= 0.97, panoptic pixels >= 0.98, as in eval: the program runs "
+        "the graph's decomposed ops, which may sum in another order, in bf16)")
+    ok = bit_equal or (agree["sem_seg_logits"] <= 0.05 and min(
+        agree["detections.valid"], agree["detections.classes"]) >= 0.97
+        and agree["panoptic"] >= 0.98)
+    if not ok or child["launches"] != 4 or k1_nodes != 4 or child["model_code_imported"]:
+        raise AssertionError(f"export: {res}")
+    return res
+
+
+def phase_analyze(dev):
+    """``tools/analyze_model`` on the default Config() at 800x1344."""
+    from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+    from u2seg_torch.tools import analyze_model
+
+    k1.launches = 0
+    res = analyze_model.main(["--height", "800", "--width", "1344"])
+    res["k1"] = k1.launches
+    log(f"[analyze] default Config() at 800x1344: {res['parameters'] / 1e6:.2f} M "
+        f"parameters, {res['flops'] / 1e9:.1f} GFLOPs (" + ", ".join(
+            f"{k} {v / 1e9:.1f}" for k, v in sorted(res["flops_by_op"].items())) +
+        f"), {res['bytes_accessed'] / 1e9:.1f} GB, {res['seconds']:.1f} s; K1 launches "
+        f"{res['k1']} ({smi_line()})")
+    if res["k1"] != 4 or not res["flops"] > 0:
+        raise AssertionError(f"analyze_model: {res}")
+    return {k: v for k, v in res.items() if k != "modules"}
+
+
+def phase_tools_cpu(dev):
+    """The tiny config in f32 (TF32 off), pooler_impl="pallas" (K1 on the
+    card): ``export_inference`` + ``load_exported`` on the card and on the
+    CPU, and the demo on one image, same seed, same input. Tolerances as in
+    ``eval_cpu``: sem logits max|diff| / max <= 1e-4 (``cpu``'s 1e-3 at full
+    width), detections agreeing (class, box < 0.5 px) on >= 90% of the CPU's,
+    panoptic maps equal on >= 98% of pixels, drawn images on >= 98%."""
+    import tempfile
+
+    from u2seg_torch.demo.predictor import VisualizationDemo
+    from u2seg_torch.engine.export import export_inference, load_exported
+    from u2seg_torch.models.build import build_model
+
+    cfg = tiny_eval_config()
+    h, w = cfg.input.pad_buckets[0]
+    img = torch.from_numpy(scene(np.random.RandomState(15), h, w))[None]
+    sz = torch.tensor([[h, w - 8]], dtype=torch.int32)
+    outs, demos = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_cpu_")
+    try:
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            model = build_model(cfg, device=device, seed=3)
+            path = os.path.join(tmp, name)
+            export_inference(model, (1, h, w, 3), path, device=device)
+            outs[name] = load_exported(path)(img.to(device), sz.to(device))
+            demo = VisualizationDemo(cfg, device=device, model=model)
+            demos[name] = demo.run_on_image(scene(np.random.RandomState(16), 40, 80)
+                                            .astype(np.uint8))
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    c, g = [t.cpu() for t in outs["cpu"]], [t.cpu() for t in outs["gpu"]]
+    sem_err = float((c[5] - g[5]).abs().max() / c[5].abs().max())
+    valid_c, valid_g = c[3][0], g[3][0]
+    ok = 0
+    for j in torch.nonzero(valid_c).flatten().tolist():
+        d = ((g[0][0] - c[0][0][j]).abs().amax(-1) < 0.5) & (g[2][0] == c[2][0][j]) & valid_g
+        ok += bool(d.any())
+    det = ok / max(int(valid_c.sum()), 1)
+    pan = float((c[6] == g[6]).float().mean())
+    (pc, dc), (pg, dg) = demos["cpu"], demos["gpu"]
+    demo_pan = float((pc["panoptic"] == pg["panoptic"]).mean())
+    demo_px = float((dc == dg).all(-1).mean())
+    res = dict(sem_err=sem_err, det_agree=det, detections=int(valid_c.sum()), pan=pan,
+               demo_pan=demo_pan, demo_pixels=demo_px)
+    log(f"[tools-cpu] tiny config f32, card vs CPU: exported program sem logits "
+        f"max|diff|/max {sem_err:.2e} (tol 1e-4), detections agreeing {det:.4f} of "
+        f"{res['detections']} (tol 0.9), panoptic pixels {pan:.4f} (tol 0.98); demo on one "
+        f"image: panoptic pixels {demo_pan:.4f} (tol 0.98), drawn pixels {demo_px:.4f} "
+        f"(tol 0.98)")
+    if not (sem_err <= 1e-4 and res["detections"] > 0 and det >= 0.9 and pan >= 0.98
+            and demo_pan >= 0.98 and demo_px >= 0.98):
+        raise AssertionError(f"tools: card and CPU disagree: {res}")
+    return res
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
                   "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
-                  "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu"]
+                  "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu",
+                  "demo", "export", "analyze", "tools_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -4587,6 +4899,17 @@ def main():
         torch.cuda.empty_cache()
     if "projects_cpu" in phases:
         report["projects_cpu"] = phase_projects_cpu(dev)
+    if "demo" in phases:
+        torch.cuda.empty_cache()
+        report["demo"] = phase_demo(dev)
+    if "export" in phases:
+        torch.cuda.empty_cache()
+        report["export"] = phase_export(dev)
+    if "analyze" in phases:
+        torch.cuda.empty_cache()
+        report["analyze"] = phase_analyze(dev)
+    if "tools_cpu" in phases:
+        report["tools_cpu"] = phase_tools_cpu(dev)
     log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t_start:.0f} s")
 
     if phases == all_phases:
@@ -4601,14 +4924,16 @@ def main():
         zoo = report["zoo"]["launches"]
         # this slice's paths: the rotation-augmented training, the BN-head Mask R-CNN
         slice12 = [report["augment"]["launches"], report["projects"]["launches"]]
+        # this slice's paths: the demo, the loaded exported program, analyze_model
+        slice13 = [report[p]["k1"] for p in ("demo", "export", "analyze")]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
                         + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"]
-                        + sum(c["k1"] for c in slice12))
+                        + sum(c["k1"] for c in slice12) + sum(slice13))
         bwd_launches = (tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
                         + sum(c["k3"] for c in slice12))
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
                tr["backward_launches"], *(c[k] for c in loops + slice12 for k in ("k1", "k3")),
-               zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values()) < 1:
+               zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values(), *slice13) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes
         report["record"] = {"kernels": [{

@@ -74,10 +74,32 @@ def test_no_source_imports_jax_or_the_jax_package():
             "pseudo/semisup.py", "structures/rotated_boxes.py",
             "evaluation/rotated_coco_evaluator.py", "ops/deform_conv.py", "ops/aspp.py",
             "projects/__init__.py", "projects/deeplab.py", "projects/panoptic_deeplab.py",
-            "projects/rethinking_bn.py"} <= rel
+            "projects/rethinking_bn.py", "utils/registry.py", "utils/serialize.py",
+            "utils/file_io.py", "utils/logger.py", "utils/env.py", "utils/memory.py",
+            "utils/tracing.py", "utils/tracking.py", "utils/visualizer.py", "utils/raster.py",
+            "utils/analysis.py", "engine/export.py", "lazy.py", "demo/predictor.py",
+            "demo/u2seg_demo.py", "tools/analyze_model.py", "tools/visualize_data.py",
+            "tools/visualize_json_results.py", "tools/lazyconfig_train_net.py",
+            "ops/fusion.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_opencv_is_named_only_as_the_demos_optional_video_decoder():
+    """No source imports OpenCV (the check above). The demo's ``--video-input``
+    and ``--webcam`` look it up by name when they are used, and raise where it
+    is missing: that one constant is the only place the port names it."""
+    named = []
+    for p in _port_sources():
+        with open(p) as f:
+            tree = ast.parse(f.read(), p)
+        named += [(os.path.relpath(p, ROOT), node.lineno) for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and node.value == "cv2"]
+    assert [n for n, _ in named] == ["u2seg_torch/demo/u2seg_demo.py"], named
+    from u2seg_torch.demo import u2seg_demo
+
+    assert u2seg_demo.VIDEO_MODULE == "cv2"
 
 
 def _module_level_imports(path):
@@ -191,3 +213,27 @@ def test_pseudo_label_tool_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
     res = generate_pseudo_labels.main(["--stage", "supergt", "--device", "cpu",
                                        "--gt-panoptic-json", str(gt), "--super-json", str(out)])
     assert list(res) == ["supergt"] and res["supergt"]["annotations"] == 0 and out.exists()
+
+
+def test_this_slices_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    from u2seg_torch import config as tconfig
+    from u2seg_torch.demo import predictor as demo_predictor
+    from u2seg_torch.demo import u2seg_demo
+    from u2seg_torch.engine.export import export_inference
+    from u2seg_torch.tools import analyze_model, lazyconfig_train_net
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo_predictor.VisualizationDemo(tconfig.Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo_predictor.AsyncPredictor(tconfig.Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        u2seg_demo.main(["--config-file", "", "--input", str(tmp_path / "x.png")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analyze_model.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_inference(torch.nn.Identity(), (1, 64, 64, 3), str(tmp_path / "e"))
+    cfg = tmp_path / "lazy.py"
+    cfg.write_text(f"train = dict(max_iter=1, output_dir={str(tmp_path / 'o')!r})\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lazyconfig_train_net.main(["--config-file", str(cfg)])

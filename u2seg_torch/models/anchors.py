@@ -6,11 +6,12 @@ and cached per (shape, stride, sizes, ratios, offset, device).
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from u2seg_torch.ops.consts import cached_constant
 
 
 def cell_anchors(sizes: Sequence[float], aspect_ratios: Sequence[float]) -> np.ndarray:
@@ -42,10 +43,10 @@ def grid_anchors(
     return (shifts + base[None]).reshape(-1, 4).astype(np.float32)
 
 
-@lru_cache(maxsize=64)
 def _level_anchors(h, w, stride, sizes, ratios, offset, device) -> torch.Tensor:
-    return torch.from_numpy(
-        grid_anchors(h, w, stride, sizes, ratios, offset)).to(device)
+    return cached_constant(
+        ("anchors", h, w, stride, sizes, ratios, offset, device),
+        lambda: torch.from_numpy(grid_anchors(h, w, stride, sizes, ratios, offset)).to(device))
 
 
 def multilevel_anchors(

@@ -45,12 +45,10 @@ def _register_builtin() -> None:
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
 
 
 def build_model(cfg: Config, device: Optional[Union[str, torch.device]] = None,

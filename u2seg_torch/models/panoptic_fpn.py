@@ -19,6 +19,7 @@ import torch
 from u2seg_torch.config import ModelConfig
 from u2seg_torch.models.rcnn import GeneralizedRCNN, check_mode
 from u2seg_torch.models.sem_seg import SemSegFPNHead
+from u2seg_torch.ops.fusion import greedy_take, winner_map
 from u2seg_torch.ops.mask_paste import paste_masks
 from u2seg_torch.structures.instances import Detections, GtInstances
 
@@ -110,7 +111,7 @@ def combine_semantic_and_instance(
     ``overlap_thresh`` of it is already claimed by a kept instance. The greedy
     pass is computed as the JAX package computes it: the fixpoint
     ``take <- F(take)`` from "every eligible instance", iterated until it
-    stops changing. Stuff labels (> 0) fill unclaimed pixels when their
+    stops changing (the registered op ``ops.fusion.greedy_take``). Stuff labels (> 0) fill unclaimed pixels when their
     full-resolution area reaches ``stuff_area_limit``.
     Segment ids: sorted instance slot i -> i+1, stuff label l -> K+1+l.
 
@@ -123,7 +124,6 @@ def combine_semantic_and_instance(
     sem_label = torch.argmax(sem_logits, dim=-1).to(torch.int32)
     yy = torch.arange(h, device=dev)[:, None]
     xx = torch.arange(w, device=dev)[None, :]
-    idx3 = torch.arange(k, device=dev)[:, None, None]
 
     outs = []
     for i in range(b):
@@ -140,25 +140,17 @@ def combine_semantic_and_instance(
         area = masks.sum(dim=(1, 2))
         eligible = valid[ordr] & (scores[ordr] >= instance_conf_thresh) & (area > 0)
 
-        def winner_map(take):
-            cov = masks & take[:, None, None]
-            return torch.where(cov, idx3, k).amin(dim=0)
-
-        take = eligible
-        while True:
-            wm = winner_map(take)
-            inter = (masks & (wm[None] < idx3)).sum(dim=(1, 2))
-            new = eligible & (inter / torch.clamp(area, min=1) <= overlap_thresh)
-            if torch.equal(new, take):
-                break
-            take = new
-        wm = winner_map(take)
+        take = greedy_take(masks, eligible, area, overlap_thresh)
+        wm = winner_map(masks, take)
         claimed = wm < k
         inst_id_map = torch.where(claimed, wm + 1, 0)
 
         sem_lab = sem_label[i]
         stuff_mask = (~claimed) & (sem_lab > 0) & inside
-        areas = torch.bincount(sem_lab[stuff_mask].long(), minlength=num_stuff)
+        # a bincount of the stuff pixels, with a shape that does not depend
+        # on the data (no boolean index): exportable
+        areas = torch.zeros(num_stuff, dtype=torch.int64, device=dev).scatter_add_(
+            0, sem_lab.reshape(-1).long(), stuff_mask.reshape(-1).long())
         stuff_ok = areas * (stride * stride) >= stuff_area_limit
         lab_ok = stuff_ok[sem_lab.long()] & stuff_mask
         stuff_id_map = torch.where(lab_ok, k + 1 + sem_lab, 0)
@@ -175,3 +167,4 @@ def combine_semantic_and_instance(
                               torch.full((num_stuff,), -1, dtype=torch.int32, device=dev)])
         outs.append((pan, seg_cat, seg_isthing, seg_score, seg_valid, seg_inst))
     return tuple(torch.stack(t) for t in zip(*outs))
+

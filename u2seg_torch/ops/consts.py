@@ -2,7 +2,8 @@
 
 Creating a tensor from Python values on a GPU is a host-to-device copy that
 waits for the stream; the routing code needs a few such tables per call, so
-they are made once per (values, dtype, device). Divisions in routing code
+they are made once per (values, dtype, device); a trace's tensors are not
+kept (``cached_constant``). Divisions in routing code
 use these 0-dim tensors as divisors on purpose: PyTorch's CUDA kernels turn
 division by a Python scalar into a multiply by its reciprocal, which can
 differ from the JAX package's true division by one ulp, and a level index is
@@ -10,15 +11,30 @@ the floor of such a quotient.
 """
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Sequence
 
 import torch
 
+_TABLES: dict = {}
 
-@lru_cache(maxsize=256)
-def _table(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype, device=device)
+
+def cached_constant(key, make):
+    """``make()`` once per ``key``. A tensor made under ``torch.export`` or a
+    fake mode is a trace's (a subclass of ``torch.Tensor``, without values):
+    it is returned and never kept, so no eager call later receives it."""
+    t = _TABLES.get(key)
+    if t is None:
+        t = make()
+        if type(t) is torch.Tensor:
+            if len(_TABLES) >= 1024:
+                _TABLES.clear()
+            _TABLES[key] = t
+    return t
+
+
+def _table(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return cached_constant(("table", values, dtype, device),
+                           lambda: torch.tensor(values, dtype=dtype, device=device))
 
 
 def device_table(values: Sequence, dtype: torch.dtype,

@@ -37,9 +37,14 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+@torch.library.custom_op("u2seg_torch::nms_self_suppression", mutates_args=())
 def _self_suppression(iou: torch.Tensor, threshold: float) -> torch.Tensor:
     """iou: (M, T, T), non-zero only above the diagonal (row suppresses
-    column). Returns bool (M, T): suppressed."""
+    column). Returns bool (M, T): suppressed.
+
+    A registered op: its loop reads the power set back to the host every
+    round, which ``torch.export`` cannot trace; the export records one node
+    whose output shape the fake implementation below gives."""
     over = iou > threshold
     power = torch.ones(iou.shape[:-1], dtype=torch.bool, device=iou.device)
     while True:
@@ -48,6 +53,11 @@ def _self_suppression(iou: torch.Tensor, threshold: float) -> torch.Tensor:
         if torch.equal(new_power, power):
             return sup
         power = new_power
+
+
+@_self_suppression.register_fake
+def _(iou, threshold):
+    return iou.new_empty(iou.shape[:-1], dtype=torch.bool)
 
 
 def nms(

@@ -16,9 +16,13 @@ Plain twins of the JAX functions (same names, same f32 op order):
 ``_ml_geometry`` and ``multilevel_roi_align_ref``. The twin is the CPU path
 and the yardstick the kernels are held to on the card.
 
-``multilevel_roi_align_kernel`` is the wrapper: for CPU tensors it returns the
-twin; for CUDA tensors it launches ``csrc/roi_align_ml.cu`` or raises. It
-counts its launches in ``multilevel_roi_align_kernel.launches``.
+``multilevel_roi_align_kernel`` is the wrapper: one call of the registered op
+``torch.ops.u2seg_torch.multilevel_roi_align``, whose CPU implementation is the
+twin and whose CUDA implementation launches ``csrc/roi_align_ml.cu`` or raises
+(there is no fallback between them). The launches are counted in
+``multilevel_roi_align_kernel.launches``. The op has a fake implementation, so
+``torch.export`` keeps it as one node, and a FLOP formula (the twin's count)
+for ``torch.utils.flop_counter``.
 
 ``multilevel_roi_align_train`` is the differentiable pooler of the train
 path (``multilevel_roi_align_train`` of the JAX package): f32 out, gradient
@@ -59,6 +63,7 @@ import warnings
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from u2seg_torch import _cuda
 from u2seg_torch.ops.consts import device_table, scalar
@@ -341,20 +346,63 @@ def multilevel_roi_align_kernel(
 ) -> torch.Tensor:
     """FPN ROIPooler with the multilevel ROIAlign kernel -> (R, s, s, C).
 
-    CPU tensors take the plain twin. CUDA tensors launch the kernel; any
+    One call of the registered op ``torch.ops.u2seg_torch.multilevel_roi_align``:
+    CPU tensors take the plain twin, CUDA tensors launch the kernel; any
     input the kernel does not take raises."""
-    out_dtype = out_dtype or torch.float32
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align_ref(
-            features, boxes, batch_idx, output_size, strides, sampling_ratio,
-            canonical_box_size, canonical_level).to(out_dtype)
     if sampling_ratio <= 0:
         sampling_ratio = 2
+    return torch.ops.u2seg_torch.multilevel_roi_align(
+        list(features), boxes, batch_idx, int(output_size),
+        [int(v) for v in strides], int(sampling_ratio), float(canonical_box_size),
+        int(canonical_level), out_dtype or torch.float32)
+
+
+@torch.library.custom_op("u2seg_torch::multilevel_roi_align", mutates_args=(),
+                         device_types="cpu")
+def _multilevel_roi_align_op(
+    features: List[torch.Tensor], boxes: torch.Tensor, batch_idx: torch.Tensor,
+    output_size: int, strides: List[int], sampling_ratio: int,
+    canonical_box_size: float, canonical_level: int, out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The registered K1 op. Its CPU implementation is the plain twin; its
+    CUDA one (below) launches the kernel; ``torch.export`` records it as one
+    node of the graph (the fake implementation gives its shape)."""
+    return multilevel_roi_align_ref(
+        features, boxes, batch_idx, output_size, strides, sampling_ratio,
+        canonical_box_size, canonical_level).to(out_dtype)
+
+
+@_multilevel_roi_align_op.register_kernel("cuda")
+def _(features, boxes, batch_idx, output_size, strides, sampling_ratio,
+      canonical_box_size, canonical_level, out_dtype):
     s, r = output_size, sampling_ratio
     _check_inputs(features, boxes, batch_idx, s, r, out_dtype)
-    args = prepare_launch(features, boxes, batch_idx, s, r, strides,
-                          canonical_box_size, canonical_level, out_dtype)
-    return launch(args)
+    return launch(prepare_launch(features, boxes, batch_idx, s, r, strides,
+                                 canonical_box_size, canonical_level, out_dtype))
+
+
+@_multilevel_roi_align_op.register_fake
+def _(features, boxes, batch_idx, output_size, strides, sampling_ratio,
+      canonical_box_size, canonical_level, out_dtype):
+    c = features[0].shape[-1]
+    return boxes.new_empty((boxes.shape[0], output_size, output_size, c),
+                           dtype=out_dtype)
+
+
+def twin_flops(n_roi: int, channels: int, s: int, r: int) -> int:
+    """Multiply-adds x 2 of the plain twin: the two separable contractions of
+    the (WIN_Y, WIN) window, ``einsum(Wy, window)`` then ``einsum(Wx, .)``
+    over n = s * r samples per axis."""
+    n = s * r
+    return 2 * n_roi * channels * n * WIN * (WIN_Y + n)
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.u2seg_torch.multilevel_roi_align)
+def _flop_formula(features_shape, boxes_shape, batch_idx_shape, output_size,
+                  strides, sampling_ratio, *args, out_shape=None, **kwargs) -> int:
+    return twin_flops(boxes_shape[0], features_shape[0][-1], output_size,
+                      sampling_ratio)
 
 
 def _check_inputs(features, boxes, batch_idx, s, r, out_dtype):
