@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,demo,export,analyze,tools_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,projects2,projects2_cpu,demo,export,analyze,tools_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -223,22 +223,38 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    back);
 27. projects_cpu: tiny configs of each new module on the card against the
    CPU (f32, TF32 off, 1e-4 x max; grouping and fusion exact);
-28. demo: ``VisualizationDemo.run_on_image`` (the default Config() at full
+28. projects2: the last project modules at full width, b=2 at 800x1344,
+   seeded weights, each timed (median of 3 after a warm-up) with its peak
+   memory: TensorMask at its published settings over the R50-FPN p2-p7
+   (inference with 6000 candidates, NMS 0.5, 100 detections; loss +
+   backward on 20 of 100 GT slots with 64x64 patches; SwapAlign2Nat at p7
+   and its peak memory); over the zoo's Mask R-CNN R50-FPN 3x (bf16, 2 K1
+   per forward): the DensePose chart heads over its 100 detections per
+   image (IUV, 10 quantised), their losses plain and ``indep_aniso`` on 32
+   foreground ROIs per image, the CSE heads (smpl_27554, pix2shape) loss +
+   backward and nearest vertices on 10 ROIs, PointRend's subdivision, a
+   training forward whose mask loss is PointSup's plus PointRend's point
+   loss (2 K1 + 2 K3); a trident res4 stage of R50 forward + backward with
+   the shared kernels' gradients against the sums of the branches' parts;
+29. projects2_cpu: tiny configs of those modules on the card against the
+   CPU (f32, TF32 off, 1e-4 x max; kept detections, IUV labels and nearest
+   vertices exact);
+30. demo: ``VisualizationDemo.run_on_image`` (the default Config() at full
    width, seeded calibrated weights, fusion threshold 0.05, a Hungarian
    instance mapping the phase writes) on four eval scenes (480x640,
    427x640, 640x480, 500x375): ms per image of predict, draw (the OpenCV-free
    visualizer) and write (Pillow JPEG), K1 launches per image (4); each
    drawing equals a visualizer's over the same fetched predictions; then
    ``u2seg_demo.main`` on one PNG file with ``--confidence-threshold 0.05``;
-29. export: ``export_inference`` of that model at b=1, 800x1216 on the card
+31. export: ``export_inference`` of that model at b=1, 800x1216 on the card
    (``torch.export``, K1 a registered op: 4 nodes), loaded in a fresh
    process that imports ``u2seg_torch.engine.export`` and no model code:
    export, save and load seconds, artifact MB, eager and loaded forward ms,
    4 K1 launches per loaded call, loaded outputs against the eager
    forward's (bit-equal, or the stated tolerance);
-30. analyze: ``tools/analyze_model`` on the default Config() at 800x1344:
+32. analyze: ``tools/analyze_model`` on the default Config() at 800x1344:
    parameters, GFLOPs per op kind, GB, seconds, 4 K1 launches;
-31. tools_cpu: the tiny config in f32 (TF32 off, K1 on the card) exported
+33. tools_cpu: the tiny config in f32 (TF32 off, K1 on the card) exported
    and loaded on the card and on the CPU, and the demo on one image, card
    against CPU at ``eval_cpu``'s tolerances.
 
@@ -4484,7 +4500,648 @@ def phase_projects_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phases 28-31: the user-facing entry points (demo, export, analyze_model)
+# Phases 28-29: the last project modules (TensorMask, DensePose chart and
+# CSE, PointRend, PointSup, TridentNet), composed with the port's models
+# ---------------------------------------------------------------------------
+
+PROJECTS2_TIMED = 3                     # ms: the median of 3 after a warm-up
+MASK_RCNN_3X_YAML = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
+DP_ROIS_PER_IMAGE = 32                  # foreground ROIs of the DensePose losses
+DP_SEGM = 128                           # the mapper's part raster
+POINTSUP_POINTS = 10                    # annotated points per instance (PointSup, COCO)
+POINTREND_ROIS = 32                     # per image: 64 ROIs of the point loss
+
+
+def timed_ms(fn, iters: int = PROJECTS2_TIMED):
+    """``fn()`` once to warm up, then ``iters`` synchronised calls -> (median
+    ms, the last call's output)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def grads_finite_nonzero(*modules) -> bool:
+    """Every gradient of the modules' parameters finite, and not all zero."""
+    gs = [p.grad for m in modules for p in m.parameters() if p.grad is not None]
+    return bool(gs) and all_finite(gs) and any(float(g.abs().max()) > 0 for g in gs)
+
+
+def peak_mib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+
+def _tensormask_check(dev) -> dict:
+    """TensorMask at its published settings over the port's R50-FPN (p2-p7)."""
+    from u2seg_torch import model_zoo
+    from u2seg_torch.config import FPNConfig, ResNetConfig
+    from u2seg_torch.models.fpn import FPN
+    from u2seg_torch.projects.tensormask import TensorMask, TensorMaskConfig, swap_align2nat
+    from u2seg_torch.weights import seeded_init
+
+    h, w = TRAIN_HW
+    # seeded classifiers sit at the 0.01 prior, under the 0.05 threshold:
+    # every candidate enters the top-k (as zoo_calibrate does for RetinaNet)
+    cfg = TensorMaskConfig(score_thresh=0.0)
+    backbone = seeded_init(FPN(ResNetConfig(norm="FrozenBN"),
+                               FPNConfig(norm="", top_block="p6p7")), seed=11).to(dev)
+    model = seeded_init(TensorMask(cfg, 256), seed=12).to(dev)
+    batch = zoo_train_batch(model_zoo.get_config(MASK_RCNN_3X_YAML), 2, h, w).to(dev)
+    x = _normalise(batch.images.cpu().numpy(), dev)
+    res = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def infer():
+        with torch.no_grad():
+            return model(backbone(x), batch.image_sizes)
+
+    res["infer_ms"], out = timed_ms(infer)
+    res["infer_peak_mib"] = peak_mib(dev)
+    res["infer_profile"] = forward_profile(infer, iters=1)
+    res["detections"] = int(out["valid"].sum())
+    res["infer_ok"] = all_finite([out["boxes"], out["scores"], out["mask_patches"]]) and (
+        out["mask_patches"].shape == (2, cfg.max_detections, cfg.mask_out_size, cfg.mask_out_size))
+    del out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    backbone.train()
+    model.train()
+
+    def step():
+        backbone.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
+        losses = model(backbone(x), batch.image_sizes, gt=batch.gt, train=True)
+        sum(losses.values()).backward()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    res["train_ms"], res["losses"] = timed_ms(step)
+    res["train_peak_mib"] = peak_mib(dev)
+    res["train_ok"] = (all(np.isfinite(v) for v in res["losses"].values())
+                       and res["losses"]["loss_mask"] > 0 and grads_finite_nonzero(model, backbone))
+    backbone.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    # SwapAlign2Nat at p7 (lambda 32, 15 x 15 windows on the p2 grid)
+    m = max(cfg.mask_sizes)
+    pm = torch.randn(2, m * m, h // 4, w // 4, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        y = swap_align2nat(pm, 32)
+    torch.cuda.synchronize()
+    res["swap_p7_peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    res["swap_p7_in_mib"] = pm.numel() * 4 / 2 ** 20
+    res["swap_p7_out_mib"] = y.numel() * 4 / 2 ** 20
+    # the JAX package's second einsum: (N, H, W, V', U') in f32
+    res["swap_p7_einsum_gib"] = 2 * (h // 4) * (w // 4) * (32 * m) ** 2 * 4 / 2 ** 30
+    with torch.no_grad():
+        res["swap_p7_ms"], _ = timed_ms(lambda: swap_align2nat(pm, 32))
+    res["swap_ok"] = all_finite([y]) and tuple(y.shape) == (2, (32 * m) ** 2, -(-h // 128),
+                                                             -(-w // 128))
+    del backbone, model, pm, y
+    return res
+
+
+def _dp_gt(rng, gt, dev):
+    """Packed DensePose GT on the GT slots that hold a box: 196 points with
+    GT-box-relative coordinates, labels and U / V, and a blocky 128 x 128
+    part raster."""
+    b, g = gt.valid.shape
+    p = 196
+    blocks = rng.randint(0, 15, (b, g, DP_SEGM // 16, DP_SEGM // 16)).astype(np.uint8)
+    arrs = {"dp_xy": rng.rand(b, g, p, 2).astype(np.float32),
+            "dp_i": rng.randint(1, 25, (b, g, p)).astype(np.int64),
+            "dp_u": rng.rand(b, g, p).astype(np.float32),
+            "dp_v": rng.rand(b, g, p).astype(np.float32),
+            "dp_point_valid": np.ones((b, g, p), bool),
+            "dp_segm": np.repeat(np.repeat(blocks, 16, 2), 16, 3)}
+    out = {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+    out["dp_valid"] = gt.valid.clone()
+    return out
+
+
+def _rcnn_projects_check(dev) -> dict:
+    """DensePose chart and CSE, PointRend and PointSup over the zoo's Mask
+    R-CNN R50-FPN 3x (bf16, seeded, calibrated), b=2 at 800x1344."""
+    from u2seg_torch import model_zoo
+    from u2seg_torch.models.roi_heads import _take
+    from u2seg_torch.ops import roi_align_ml as rap
+    from u2seg_torch.projects import densepose as DP
+    from u2seg_torch.projects import densepose_cse as CSE
+    from u2seg_torch.projects import pointrend as PR
+    from u2seg_torch.projects import pointsup as PS
+    from u2seg_torch.projects.densepose_eval import quantize_chart_result
+    from u2seg_torch.weights import seeded_init
+
+    k1, k3 = rap.multilevel_roi_align_kernel, rap.multilevel_roi_align_backward
+    h, w = TRAIN_HW
+    model, cfg = model_zoo.get(MASK_RCNN_3X_YAML, device=dev)
+    zoo_calibrate(cfg.model)
+    dtype = model.compute_dtype
+    rh, c = model.roi_heads, model.roi_heads.cfg
+    batch = zoo_train_batch(cfg, 2, h, w).to(dev)
+    gt, b = batch.gt, 2
+    rng = np.random.RandomState(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res, launches = {}, {}
+    captured = {}
+    hook = rh.mask_head.register_forward_pre_hook(
+        lambda mod, args: captured.__setitem__("fine", args[0]))
+
+    def forward():
+        with torch.no_grad():
+            feats = model.features(batch.images)
+            rpn = model.proposal_generator(feats, batch.image_sizes)
+            return feats, rh(feats, rpn.proposal_boxes, rpn.proposal_scores, rpn.proposal_valid,
+                             batch.image_sizes)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.launches = k3.launches = 0                          # the main path starts
+    res["rcnn_ms"], (feats, det) = timed_ms(forward)
+    launches["forward"] = (k1.launches, k3.launches)       # the main path ends
+    hook.remove()
+    res["detections"] = int(det.valid.sum())
+    feats = {k: v.detach() for k, v in feats.items()}
+
+    # DensePose chart: inference over every detection, IUV, 10 quantised
+    dp = seeded_init(DP.DensePoseHeads(DP.DensePoseConfig(), 256, dtype=dtype), seed=21).to(dev)
+
+    def dp_infer():
+        with torch.no_grad():
+            out = dp(feats, det.boxes)
+            return out, DP.densepose_chart_inference({k: v.flatten(0, 1) for k, v in out.items()})
+
+    k1.launches = k3.launches = 0
+    res["dp_infer_ms"], (dp_out, iuv) = timed_ms(dp_infer)
+    launches["densepose_infer"] = (k1.launches, k3.launches)
+    rois = [(i // 5, i % 5) for i in range(10)]
+    t0 = time.perf_counter()
+    quant = []
+    for bi, ri in rois:
+        x0, y0, x1, y1 = det.boxes[bi, ri].tolist()
+        quant.append(quantize_chart_result(
+            *(dp_out[k][bi, ri].permute(1, 2, 0).float().cpu().numpy()
+              for k in ("coarse_segm", "fine_segm", "u", "v")),
+            (int(max(x1 - x0, 1.0)), int(max(y1 - y0, 1.0)))))
+    res["quantize_ms"] = (time.perf_counter() - t0) * 1e3 / len(rois)
+    res["dp_infer_ok"] = (all_finite(dp_out.values()) and all_finite(iuv[1:])
+                          and int(iuv[0].max()) <= 24 and all(q.dtype == np.uint8 for q in quant)
+                          and tuple(dp_out["fine_segm"].shape) == (b, det.boxes.shape[1], 25, 112, 112))
+    del dp_out, iuv
+
+    # DensePose losses on 32 foreground ROIs per image (GT boxes jittered)
+    dp_gt = _dp_gt(rng, gt, dev)
+    n_real = int(gt.valid[0].sum())
+    gt_idx = torch.arange(DP_ROIS_PER_IMAGE, device=dev).remainder(n_real).repeat(b, 1)
+    jit = torch.from_numpy(rng.uniform(-0.1, 0.1, (b, DP_ROIS_PER_IMAGE, 4)).astype(np.float32)).to(dev)
+    gbox = _take(gt.boxes, gt_idx)
+    prop = gbox + jit * (gbox[..., 2:] - gbox[..., :2]).repeat(1, 1, 2)
+    idx, live = DP.select_densepose_rois(torch.ones_like(gt_idx, dtype=torch.bool), gt_idx,
+                                         dp_gt["dp_valid"], DP_ROIS_PER_IMAGE)
+    roi_boxes = _take(prop, idx.long())
+    roi_gt = DP.gather_densepose_gt_for_rois(dp_gt, gt.boxes, torch.gather(gt_idx, 1, idx.long()))
+    for conf, name in (("", "plain"), ("indep_aniso", "indep_aniso")):
+        head = seeded_init(DP.DensePoseHeads(DP.DensePoseConfig(uv_confidence=conf), 256,
+                                             dtype=dtype), seed=22).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def dp_step():
+            head.zero_grad(set_to_none=True)
+            losses = head(feats, roi_boxes, train=True, gt=roi_gt, roi_live=live)
+            sum(losses.values()).backward()
+            return {k: float(v.detach()) for k, v in losses.items()}
+
+        k1.launches = k3.launches = 0
+        ms, losses = timed_ms(dp_step)
+        launches[f"densepose_loss_{name}"] = (k1.launches, k3.launches)
+        res[f"dp_loss_{name}"] = dict(
+            ms=ms, losses=losses, peak_mib=peak_mib(dev),
+            ok=all(np.isfinite(v) for v in losses.values()) and grads_finite_nonzero(head))
+        del head
+
+    # DensePose CSE on the same ROIs: loss + backward, nearest vertices on 10
+    ccfg = CSE.CSEConfig(pix2shape_enabled=True)
+    cse = seeded_init(CSE.DensePoseCseHeads(ccfg, 256, dtype=dtype), seed=23).to(dev)
+    embedder = seeded_init(CSE.Embedder(ccfg), seed=24).to(dev)
+    s_out = 4 * 28
+    flat = lambda x: x.flatten(0, 1)  # noqa: E731
+    coords, inside = DP.remap_points_to_proposals(flat(roi_gt["dp_xy"]), flat(roi_gt["gt_boxes"]),
+                                                  flat(roi_boxes))
+    coords = coords.clamp(0.0, 1.0)
+    n_roi, n_pt = coords.shape[:2]
+    mesh = ccfg.meshes[0]
+    pts = CSE.CsePoints(x=coords[..., 0], y=coords[..., 1],
+                        vertex_ids=torch.randint(0, mesh.num_vertices, (n_roi, n_pt), device=dev,
+                                                 generator=gen),
+                        mesh_ids=torch.zeros((n_roi, n_pt), dtype=torch.long, device=dev),
+                        valid=flat(roi_gt["dp_point_valid"]) & inside)
+    cgt = DP.resample_coarse_segm_gt(flat(roi_gt["dp_segm"]), flat(roi_gt["gt_boxes"]),
+                                     flat(roi_boxes), s_out)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def cse_step():
+        cse.zero_grad(set_to_none=True)
+        embedder.zero_grad(set_to_none=True)
+        losses = cse(feats, roi_boxes, train=True, points=pts, coarse_segm_gt=cgt, roi_live=live,
+                     mesh_embeddings=[embedder(mesh.name)], generator=gen)
+        sum(losses.values()).backward()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    k1.launches = k3.launches = 0
+    ms, losses = timed_ms(cse_step)
+    launches["cse_loss"] = (k1.launches, k3.launches)
+    res["cse_loss"] = dict(ms=ms, losses=losses, peak_mib=peak_mib(dev),
+                           ok=all(np.isfinite(v) for v in losses.values()) and len(losses) == 3
+                           and grads_finite_nonzero(cse, embedder))
+
+    def nearest():
+        with torch.no_grad():
+            out = cse(feats, det.boxes[:, :5])
+            return CSE.cse_nearest_vertices(flat(out["embedding"]), flat(out["coarse_segm"]),
+                                            embedder(mesh.name))
+
+    res["cse_nearest_ms"], (vid, fg) = timed_ms(nearest)
+    res["cse_nearest_ok"] = (tuple(vid.shape) == (10, s_out, s_out) and int(vid.min()) >= 0
+                             and int(vid.max()) < mesh.num_vertices and fg.dtype == torch.bool)
+    del cse, embedder, pts, cgt
+
+    # PointRend: subdivision over every detection's 28 x 28 logits, the fine
+    # features the mask head's K1 pool (14 x 14 x 256)
+    head = seeded_init(PR.PointHead(256, 1), seed=25).to(dev)
+    fine = captured["fine"].permute(0, 3, 1, 2).float()
+    coarse = flat(det.mask_logits).float()
+
+    def refine():
+        with torch.no_grad():
+            return PR.refine_mask_inference(head, fine, coarse, 2, 196, 56)
+
+    res["refine_ms"], refined = timed_ms(refine)
+    res["refine_ok"] = all_finite([refined]) and tuple(refined.shape) == (fine.shape[0], 56, 56)
+    del fine, coarse, captured["fine"], refined, feats, det
+
+    # PointSup (10 points per instance) replacing the mask loss of a training
+    # forward, and PointRend's point loss on 64 of its mask ROIs
+    g = gt.valid.shape[1]
+    rel = torch.from_numpy(rng.rand(b, g, POINTSUP_POINTS, 2).astype(np.float32)).to(dev)
+    pt_xy = gt.boxes[:, :, None, :2] + rel * (gt.boxes[:, :, None, 2:] - gt.boxes[:, :, None, :2])
+    inside_mask = PR.point_sample(gt.masks.flatten(0, 1)[:, None].float(), flat(rel))[..., 0] > 0.5
+    pt_lab = torch.where(gt.valid[..., None], inside_mask.reshape(b, g, -1).float(),
+                         torch.full_like(rel[..., 0], -1.0))
+    model.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def ps_step():
+        model.zero_grad(set_to_none=True)
+        head.zero_grad(set_to_none=True)
+        feats = model.features(batch.images)
+        rpn = model.proposal_generator(feats, batch.image_sizes, gt=gt, train=True, generator=gen)
+        props = rh._sample(rpn.proposal_boxes, rpn.proposal_scores, rpn.proposal_valid, gt,
+                           c.iou_thresholds[0], gen)
+        pooled = rh._pool(feats, props.boxes, c.box_head.pooler_resolution,
+                          c.box_head.pooler_sampling_ratio, train=True)
+        scores, deltas = rh.box_predictor(rh.box_head(pooled.to(dtype)))
+        losses = dict(rpn.losses)
+        losses.update(rh._box_losses(scores, deltas, props, _take(gt.boxes, props.gt_idx),
+                                     c.bbox_reg_weights))
+        midx, mvalid = rh._select_mask_rois(props)
+        mboxes = _take(props.boxes, midx)
+        fine = rh._pool(feats, mboxes, c.mask_head.pooler_resolution,
+                        c.mask_head.pooler_sampling_ratio, train=True)
+        mgt = torch.gather(props.gt_idx, 1, midx)
+        mcls = torch.clamp(torch.gather(props.gt_classes, 1, midx), 0, c.num_classes - 1)
+        logits = rh.mask_head(fine.to(dtype), mcls.reshape(-1)).permute(0, 3, 1, 2)
+        coords, labels = PS.prepare_point_targets(flat(mboxes), flat(_take(pt_xy, mgt)),
+                                                  flat(_take(pt_lab, mgt)))
+        losses["loss_mask_point_sup"] = PS.point_sup_mask_loss(
+            logits, torch.zeros_like(mcls.reshape(-1)), coords, labels, mvalid.reshape(-1))
+        cap, sel = midx.shape[1], slice(0, POINTREND_ROIS)
+        rb, gb = flat(mboxes[:, sel]), flat(_take(gt.boxes, mgt[:, sel]))
+        patch = flat(_take(gt.masks, mgt[:, sel])).float()
+
+        def gt_at(p):
+            img = rb[:, None, :2] + p * (rb[:, None, 2:] - rb[:, None, :2])
+            r = (img - gb[:, None, :2]) / (gb[:, None, 2:] - gb[:, None, :2]).clamp(min=1e-6)
+            return PR.point_sample(patch[:, None], r)[..., 0]
+
+        fine_s = flat(fine.reshape(b, cap, *fine.shape[1:])[:, sel]).permute(0, 3, 1, 2)
+        coarse_s = flat(logits.reshape(b, cap, *logits.shape[2:])[:, sel])
+        losses["loss_mask_point_rend"] = PR.point_rend_mask_loss(
+            head, fine_s.float(), coarse_s.float(), gt_at, 196, generator=gen)
+        sum(losses.values()).backward()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    k1.launches = k3.launches = 0                          # the main path starts
+    ms, losses = timed_ms(ps_step)
+    launches["pointsup_step"] = (k1.launches, k3.launches)  # the main path ends
+    res["pointsup"] = dict(ms=ms, losses=losses, peak_mib=peak_mib(dev),
+                           ok=all(np.isfinite(v) for v in losses.values())
+                           and grads_finite_nonzero(model.roi_heads.mask_head, head))
+    res["launches"] = launches
+    del model, head
+    return res
+
+
+def _trident_check(dev) -> dict:
+    """A trident res4 stage of R50 (6 blocks, 1024 out / 256 bottleneck,
+    dilations 1, 2, 3, BN in training mode) on the res3 output of the port's
+    R50 trunk, b=2 at 800x1344: forward + backward, and the shared kernels'
+    gradients against the sums of the branches' parts (TF32 off)."""
+    from u2seg_torch.config import ResNetConfig
+    from u2seg_torch.models.resnet import ResNet
+    from u2seg_torch.projects.tridentnet import make_trident_stage
+    from u2seg_torch.weights import seeded_init
+
+    h, w = TRAIN_HW
+    trunk = seeded_init(ResNet(ResNetConfig(norm="FrozenBN", out_features=("res3",))),
+                        seed=31).to(dev).eval()
+    x = _normalise(np.random.RandomState(14).randint(0, 256, (2, h, w, 3)).astype(np.uint8), dev)
+    with torch.no_grad():
+        res3 = trunk(x)["res3"]
+    del trunk, x
+    stage = seeded_init(make_trident_stage(512, 6, 1024, 256, norm="BN"), seed=32).to(dev).train()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cots = [torch.randn(2, 1024, *res3.shape[2:], device=dev, generator=gen) for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def step():
+        stage.zero_grad(set_to_none=True)
+        outs = stage(res3)
+        sum((o * cot).sum() for o, cot in zip(outs, cots)).backward()
+        return [o.detach() for o in outs]
+
+    ms, outs = timed_ms(step)
+    res = dict(ms=ms, peak_mib=peak_mib(dev), out_shape=list(outs[0].shape),
+               ok=all_finite(outs) and grads_finite_nonzero(stage))
+    del outs
+    kernels = [getattr(stage, f"trident_block{i}").trident.weight for i in range(6)]
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = stage(res3)
+        terms = [(o * cot).sum() for o, cot in zip(outs, cots)]
+        parts = [torch.autograd.grad(tm, kernels, retain_graph=True) for tm in terms]
+        total = torch.autograd.grad(sum(terms), kernels)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    res["split_err"] = max(float((tot - sum(p[i] for p in parts)).abs().max())
+                           / max(float(tot.abs().max()), 1e-30) for i, tot in enumerate(total))
+    res["ok"] = res["ok"] and res["split_err"] <= F32_TOL
+    del stage, res3, cots, outs, terms, parts, total
+    return res
+
+
+def phase_projects2(dev):
+    """The last project modules at full width, b=2 at 800x1344 with seeded
+    weights, each timed (median of 3 after a warm-up) with its peak memory:
+    TensorMask (published settings over the R50-FPN p2-p7: inference with
+    6000 candidates, NMS 0.5, 100 detections; loss + backward on 20 of 100
+    GT slots with 64x64 patches; SwapAlign2Nat at p7); over the zoo's Mask
+    R-CNN R50-FPN 3x (2 K1 per forward): DensePose chart heads over its 100
+    detections per image (IUV, 10 quantised), their losses plain and
+    ``indep_aniso`` on 32 foreground ROIs per image, CSE (smpl_27554,
+    pix2shape) loss + backward and nearest vertices on 10 ROIs, PointRend's
+    subdivision over the 28 x 28 mask logits, and a training forward whose
+    mask loss is PointSup's (10 points per instance) plus PointRend's point
+    loss on 64 ROIs (2 K1 + 2 K3); a trident res4 stage of R50 forward +
+    backward. Fails unless every output, loss and gradient is finite and
+    every launch count is the expected one."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        tm = _tensormask_check(dev)
+        torch.cuda.empty_cache()
+        rc = _rcnn_projects_check(dev)
+        torch.cuda.empty_cache()
+        tr = _trident_check(dev)
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[projects2] TensorMask (R50-FPN p2-p7, 80 classes, windows 11 and 15, align + "
+        f"bipyramid), b=2 {TRAIN_HW[0]}x{TRAIN_HW[1]} f32: inference {tm['infer_ms']:.1f} ms "
+        f"({tm['detections']} detections, peak {tm['infer_peak_mib']:.0f} MiB; profiled: "
+        f"{tm['infer_profile']['device_ms']:.1f} ms of kernels, busy {tm['infer_profile']['busy']:.2f}, "
+        f"{tm['infer_profile']['launches']:.0f} launches, top "
+        + "; ".join(f"{k['name'][:40]} {k['ms']:.2f} ms" for k in tm["infer_profile"]["top"])
+        + f"); loss + backward "
+        f"{tm['train_ms']:.1f} ms (" + ", ".join(f"{k[5:]} {v:.4f}" for k, v in tm["losses"].items())
+        + f"; peak {tm['train_peak_mib']:.0f} MiB); SwapAlign2Nat at p7 (lambda 32) "
+        f"{tm['swap_p7_ms']:.2f} ms, peak {tm['swap_p7_peak_mib']:.0f} MiB over its "
+        f"{tm['swap_p7_in_mib']:.0f} MiB input and {tm['swap_p7_out_mib']:.0f} MiB output (the "
+        f"einsum order's intermediate: {tm['swap_p7_einsum_gib']:.0f} GiB) "
+        + ("ok" if tm["infer_ok"] and tm["train_ok"] and tm["swap_ok"] else "FAIL"))
+    lc = rc["launches"]
+    log(f"[projects2] Mask R-CNN R50-FPN 3x bf16 forward {rc['rcnn_ms']:.1f} ms ({rc['detections']} "
+        f"detections), K1/K3 over its 4 calls {lc['forward']}; DensePose chart heads (8 x 512, "
+        f"28 x 28 gather pool, 112 x 112 maps) over them {rc['dp_infer_ms']:.1f} ms + IUV, "
+        f"K1/K3 {lc['densepose_infer']}, quantise {rc['quantize_ms']:.2f} ms per detection; "
+        + "; ".join(f"losses {k[8:]} on {2 * DP_ROIS_PER_IMAGE} ROIs x 196 points "
+                    f"{rc[k]['ms']:.1f} ms (" + ", ".join(f"{n[14:]} {v:.4f}" for n, v in rc[k]["losses"].items())
+                    + f"; peak {rc[k]['peak_mib']:.0f} MiB)" for k in ("dp_loss_plain", "dp_loss_indep_aniso"))
+        + " " + ("ok" if rc["dp_infer_ok"] and rc["dp_loss_plain"]["ok"]
+                 and rc["dp_loss_indep_aniso"]["ok"] else "FAIL"))
+    cl = rc["cse_loss"]
+    log(f"[projects2] DensePose CSE (D 16, smpl_27554, pix2shape): loss + backward {cl['ms']:.1f} ms ("
+        + ", ".join(f"{k[5:]} {v:.4f}" for k, v in cl["losses"].items())
+        + f"; peak {cl['peak_mib']:.0f} MiB), K1/K3 {lc['cse_loss']}; nearest vertices on 10 ROIs "
+        f"{rc['cse_nearest_ms']:.1f} ms " + ("ok" if cl["ok"] and rc["cse_nearest_ok"] else "FAIL"))
+    ps = rc["pointsup"]
+    log(f"[projects2] PointRend subdivision (2 x 196 points, to 56 x 56) over "
+        f"{rc['detections']} ROIs {rc['refine_ms']:.1f} ms; a training forward with PointSup's "
+        f"mask loss ({POINTSUP_POINTS} points per instance) and PointRend's point loss on "
+        f"{2 * POINTREND_ROIS} ROIs: {ps['ms']:.1f} ms, K1/K3 over its 4 calls {lc['pointsup_step']}, "
+        + ", ".join(f"{k[5:]} {v:.4f}" for k, v in ps["losses"].items())
+        + f"; peak {ps['peak_mib']:.0f} MiB " + ("ok" if rc["refine_ok"] and ps["ok"] else "FAIL"))
+    log(f"[projects2] trident res4 stage (6 blocks, 1024 / 256, dilations 1-3, BN) on R50 res3, "
+        f"b=2 {TRAIN_HW[0]}x{TRAIN_HW[1]} f32: forward + backward {tr['ms']:.1f} ms, output "
+        f"{tr['out_shape']}, peak {tr['peak_mib']:.0f} MiB; shared-kernel gradient vs the sum of "
+        f"the branches' parts {tr['split_err']:.2e} " + ("ok" if tr["ok"] else "FAIL"))
+    calls = PROJECTS2_TIMED + 1
+    want = {"forward": (2 * calls, 0), "densepose_infer": (0, 0), "densepose_loss_plain": (0, 0),
+            "densepose_loss_indep_aniso": (0, 0), "cse_loss": (0, 0),
+            "pointsup_step": (2 * calls, 2 * calls)}
+    problems = [k for k, ok in (
+        ("tensormask", tm["infer_ok"] and tm["train_ok"] and tm["swap_ok"]),
+        ("densepose", rc["dp_infer_ok"] and rc["dp_loss_plain"]["ok"]
+         and rc["dp_loss_indep_aniso"]["ok"]),
+        ("cse", cl["ok"] and rc["cse_nearest_ok"]), ("pointrend", rc["refine_ok"]),
+        ("pointsup", ps["ok"]), ("trident", tr["ok"]), ("launches", lc == want),
+        ("detections", rc["detections"] > 0 and tm["detections"] > 0)) if not ok]
+    if problems:
+        raise AssertionError(f"projects2 failed: {problems}: {tm} {rc} {tr}")
+    return dict(tensormask=tm, rcnn=rc, trident=tr,
+                launches=dict(k1=sum(v[0] for v in lc.values()), k3=sum(v[1] for v in lc.values())))
+
+
+def phase_projects2_cpu(dev):
+    """Tiny configs of this slice's modules, f32 with TF32 off, on the card
+    and on the CPU from the same weights and inputs: SwapAlign2Nat (lambda
+    1, 2, 4), TensorMask losses and inference (kept detections exact), the
+    point head's subdivision and PointSup's loss, a trident block in
+    training mode with its gradients, the DensePose chart heads (outputs,
+    losses, IUV labels exact) and the CSE heads (losses at the CPU's picks,
+    nearest vertices exact)."""
+    from u2seg_torch.projects import densepose as DP
+    from u2seg_torch.projects import densepose_cse as CSE
+    from u2seg_torch.projects import pointrend as PR
+    from u2seg_torch.projects import pointsup as PS
+    from u2seg_torch.projects.tensormask import TensorMask, TensorMaskConfig, swap_align2nat
+    from u2seg_torch.projects.tridentnet import TridentBlock
+    from u2seg_torch.structures.instances import GtInstances
+    from u2seg_torch.weights import seeded_init
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(71)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    errs, exact = {}, {}
+
+    def rel(a, b):
+        b = b.detach().cpu().float()
+        return float((a.detach().cpu().float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def both(module):
+        """The module on the CPU and a copy of it on the card."""
+        import copy
+
+        return module, copy.deepcopy(module).to(dev)
+
+    def on(d, tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(d)
+        if isinstance(tree, dict):
+            return {k: on(d, v) for k, v in tree.items()}
+        return tree
+
+    try:
+        for lam in (1, 2, 4):
+            x = rnd(2, 9, 10, 13)
+            errs[f"swap_align2nat lambda {lam}"] = rel(swap_align2nat(x.to(dev), lam),
+                                                      swap_align2nat(x, lam))
+        cfg = TensorMaskConfig(num_classes=5, in_features=("p2", "p3"), num_convs=1,
+                               cls_channels=8, bbox_channels=8, mask_channels=8, mask_sizes=(3, 5),
+                               topk_candidates=50, max_detections=10, max_fg=8, mask_out_size=14)
+        tm = seeded_init(TensorMask(cfg, 6), seed=1)
+        with torch.no_grad():                   # spread the classifier: no near ties
+            tm.head.cls_score.weight.mul_(300.0)
+        tm_c, tm_d = both(tm)
+        feats = {"p2": rnd(2, 6, 16, 20), "p3": rnd(2, 6, 8, 10)}
+        sizes = torch.tensor([[64, 80], [60, 72]], dtype=torch.int32)
+        boxes = torch.tensor([[[9.0, 9.0, 19.0, 19.0], [30.0, 2.0, 42.0, 14.0],
+                               [17.0, 17.0, 39.0, 39.0], [0.0, 0.0, 1.0, 1.0]],
+                              [[41.0, 25.0, 51.0, 35.0], [4.0, 36.0, 20.0, 52.0],
+                               [10.0, 8.0, 16.0, 14.0], [0.0, 0.0, 1.0, 1.0]]])
+        gt = GtInstances(boxes, torch.randint(0, 5, (2, 4), generator=g),
+                         torch.tensor([[True] * 3 + [False]] * 2), torch.rand(2, 4, 16, 16, generator=g))
+        lc = tm_c(feats, sizes, gt=gt, train=True)
+        ld = tm_d(on(dev, feats), sizes.to(dev), gt=gt.to(dev), train=True)
+        errs["TensorMask losses"] = max(rel(ld[k], lc[k]) for k in lc)
+        with torch.no_grad():
+            oc, od = tm_c(feats, sizes), tm_d(on(dev, feats), sizes.to(dev))
+        exact["TensorMask kept detections"] = int(oc["valid"].sum()) > 0 and all(
+            torch.equal(oc[k], od[k].cpu()) for k in ("valid", "classes", "mask_src_boxes"))
+        errs["TensorMask boxes, scores, patches"] = max(
+            rel(od[k], oc[k]) for k in ("boxes", "scores", "mask_patches"))
+
+        ph_c, ph_d = both(seeded_init(PR.PointHead(6, 1, hidden=16), seed=2))
+        fine, coarse = rnd(3, 6, 14, 14), rnd(3, 16, 16) * 3
+        errs["PointRend subdivision"] = rel(
+            PR.refine_mask_inference(ph_d, fine.to(dev), coarse.to(dev), 2, 30, 56),
+            PR.refine_mask_inference(ph_c, fine, coarse, 2, 30, 56))
+        logits, coords = rnd(5, 3, 14, 14), torch.rand(5, 10, 2, generator=g)
+        cls, lab = torch.randint(0, 3, (5,), generator=g), torch.randint(-1, 2, (5, 10), generator=g).float()
+        valid = torch.tensor([True, True, False, True, True])
+        errs["PointSup loss"] = rel(
+            PS.point_sup_mask_loss(*(a.to(dev) for a in (logits, cls, coords, lab, valid))),
+            PS.point_sup_mask_loss(logits, cls, coords, lab, valid))
+
+        tb_c, tb_d = both(seeded_init(TridentBlock(8, 16, 4), seed=3).train())
+        xs = [rnd(2, 8, 10, 12) for _ in range(3)]
+        outs = []
+        for m, d in ((tb_c, cpu), (tb_d, dev)):
+            y = m([x.to(d) for x in xs])
+            sum(o.square().sum() for o in y).backward()
+            outs.append(list(y) + [m.trident.weight.grad, m.conv1.weight.grad]
+                        + [n.running_mean for n in m.norms])
+        errs["trident block (outputs, grads, BN stats)"] = max(rel(a, b) for a, b in zip(*outs[::-1]))
+
+        pf = {f"p{i + 2}": rnd(2, 8, 32 // 2 ** i, 32 // 2 ** i) for i in range(4)}
+        bx = torch.rand(2, 3, 4, generator=g) * 60
+        bx[..., 2:] = bx[..., :2] + 40.0
+        dcfg = DP.DensePoseConfig(num_stacked_convs=2, conv_head_dim=16, uv_confidence="iid_iso")
+        dp_c, dp_d = both(seeded_init(DP.DensePoseHeads(dcfg, 8, pooler_resolution=7), seed=4))
+        with torch.no_grad():
+            oc, od = dp_c(pf, bx), dp_d(on(dev, pf), bx.to(dev))
+        errs["DensePose chart outputs"] = max(rel(od[k], oc[k]) for k in oc)
+        ic = DP.densepose_chart_inference({k: v.flatten(0, 1) for k, v in oc.items()})
+        idv = DP.densepose_chart_inference({k: v.flatten(0, 1) for k, v in od.items()})
+        exact["IUV labels"] = torch.equal(ic[0], idv[0].cpu())
+        errs["IUV U, V"] = max(rel(idv[i], ic[i]) for i in (1, 2))
+        p = 9
+        # GT boxes off the proposals by non-integer amounts: integer ones put
+        # the raster's nearest resampling on exact .5 ties, which a 1-ulp
+        # difference between the devices' arithmetic rounds either way
+        gtd = {"gt_boxes": bx + torch.rand(2, 3, 4, generator=g) * 4,
+               "dp_xy": torch.rand(2, 3, p, 2, generator=g),
+               "dp_i": torch.randint(0, 25, (2, 3, p), generator=g),
+               "dp_u": torch.rand(2, 3, p, generator=g), "dp_v": torch.rand(2, 3, p, generator=g),
+               "dp_point_valid": torch.rand(2, 3, p, generator=g) > 0.2,
+               "dp_segm": torch.randint(0, 15, (2, 3, 16, 16), generator=g)}
+        live = torch.tensor([[True, True, False], [True, False, True]])
+        lc = dp_c(pf, bx, train=True, gt=gtd, roi_live=live)
+        ld = dp_d(on(dev, pf), bx.to(dev), train=True, gt=on(dev, gtd), roi_live=live.to(dev))
+        errs["DensePose chart losses"] = max(rel(ld[k], lc[k]) for k in lc)
+
+        mesh = CSE.MeshSpec("smpl_27554", 40)
+        ccfg = CSE.CSEConfig(embed_size=6, meshes=(mesh,), pix2shape_enabled=True,
+                             pix2shape_num_pixels=15)
+        cs_c, cs_d = both(seeded_init(CSE.DensePoseCseHeads(ccfg, 8, head_convs=2, head_dim=16,
+                                                            pooler_resolution=7), seed=5))
+        e_c, e_d = both(seeded_init(CSE.Embedder(ccfg), seed=6))
+        n, s = 6, 28
+        pts = CSE.CsePoints(torch.rand(n, p, generator=g), torch.rand(n, p, generator=g),
+                            torch.randint(0, 40, (n, p), generator=g),
+                            torch.zeros((n, p), dtype=torch.long), torch.rand(n, p, generator=g) > 0.2)
+        cgt = torch.randint(0, 2, (n, s, s), generator=g)
+        picks = CSE.pix2shape_picks(cgt > 0, 15, g)
+        lc = cs_c(pf, bx, train=True, points=pts, coarse_segm_gt=cgt, roi_live=live,
+                  mesh_embeddings=[e_c(mesh.name)], picks=picks)
+        pts_d = CSE.CsePoints(*(a.to(dev) for a in (pts.x, pts.y, pts.vertex_ids, pts.mesh_ids,
+                                                    pts.valid)))
+        ld = cs_d(on(dev, pf), bx.to(dev), train=True, points=pts_d, coarse_segm_gt=cgt.to(dev),
+                  roi_live=live.to(dev), mesh_embeddings=[e_d(mesh.name)], picks=picks.to(dev))
+        errs["CSE losses"] = max(rel(ld[k], lc[k]) for k in lc)
+        with torch.no_grad():
+            oc, od = cs_c(pf, bx), cs_d(on(dev, pf), bx.to(dev))
+            vc = CSE.cse_nearest_vertices(oc["embedding"].flatten(0, 1),
+                                          oc["coarse_segm"].flatten(0, 1), e_c(mesh.name))
+            vd = CSE.cse_nearest_vertices(od["embedding"].flatten(0, 1),
+                                          od["coarse_segm"].flatten(0, 1), e_d(mesh.name))
+        exact["nearest vertices"] = all(torch.equal(a, b.cpu()) for a, b in zip(vc, vd))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    ok = max(errs.values()) <= F32_TOL and all(exact.values())
+    log("[projects2_cpu] card vs CPU, f32, TF32 off, max error / max|CPU|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "; equal: "
+        + ", ".join(f"{k} {v}" for k, v in exact.items()) + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError(f"projects2_cpu failed: {errs}, exact {exact}")
+    return dict(errors=errs, exact=exact)
+
+
+
+# ---------------------------------------------------------------------------
+# Phases 30-33: the user-facing entry points (demo, export, analyze_model)
 # ---------------------------------------------------------------------------
 
 DEMO_SIZES = EVAL_SIZES[:4]             # 480x640, 427x640, 640x480, 500x375
@@ -4781,7 +5438,7 @@ def main():
                   "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
                   "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
                   "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu",
-                  "demo", "export", "analyze", "tools_cpu"]
+                  "projects2", "projects2_cpu", "demo", "export", "analyze", "tools_cpu"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -4899,6 +5556,12 @@ def main():
         torch.cuda.empty_cache()
     if "projects_cpu" in phases:
         report["projects_cpu"] = phase_projects_cpu(dev)
+    if "projects2" in phases:
+        torch.cuda.empty_cache()
+        report["projects2"] = phase_projects2(dev)
+        torch.cuda.empty_cache()
+    if "projects2_cpu" in phases:
+        report["projects2_cpu"] = phase_projects2_cpu(dev)
     if "demo" in phases:
         torch.cuda.empty_cache()
         report["demo"] = phase_demo(dev)
@@ -4922,17 +5585,20 @@ def main():
         dataset_launches = (report["dataset_eval"]["launches"]
                             + report["train_net"]["eval_k1"])
         zoo = report["zoo"]["launches"]
-        # this slice's paths: the rotation-augmented training, the BN-head Mask R-CNN
+        # the rotation-augmented training, the BN-head Mask R-CNN
         slice12 = [report["augment"]["launches"], report["projects"]["launches"]]
-        # this slice's paths: the demo, the loaded exported program, analyze_model
+        # the demo, the loaded exported program, analyze_model
         slice13 = [report[p]["k1"] for p in ("demo", "export", "analyze")]
+        # this slice's paths: the Mask R-CNN under DensePose, PointRend, PointSup
+        slice14 = report["projects2"]["launches"]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
                         + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"]
-                        + sum(c["k1"] for c in slice12) + sum(slice13))
+                        + sum(c["k1"] for c in slice12) + sum(slice13) + slice14["k1"])
         bwd_launches = (tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
-                        + sum(c["k3"] for c in slice12))
+                        + sum(c["k3"] for c in slice12) + slice14["k3"])
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
-               tr["backward_launches"], *(c[k] for c in loops + slice12 for k in ("k1", "k3")),
+               tr["backward_launches"],
+               *(c[k] for c in loops + slice12 + [slice14] for k in ("k1", "k3")),
                zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values(), *slice13) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes

@@ -80,7 +80,10 @@ def test_no_source_imports_jax_or_the_jax_package():
             "utils/analysis.py", "engine/export.py", "lazy.py", "demo/predictor.py",
             "demo/u2seg_demo.py", "tools/analyze_model.py", "tools/visualize_data.py",
             "tools/visualize_json_results.py", "tools/lazyconfig_train_net.py",
-            "ops/fusion.py"} <= rel
+            "ops/fusion.py", "projects/pointrend.py", "projects/pointsup.py",
+            "projects/tridentnet.py", "projects/tensormask.py", "projects/densepose.py",
+            "projects/densepose_cse.py", "projects/densepose_data.py",
+            "projects/densepose_eval.py", "tools/prepare_ade20k_sem_seg.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad

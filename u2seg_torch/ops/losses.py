@@ -95,6 +95,12 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return loss
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``, with no
+    threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Numerically stable binary cross-entropy on logits, per element, f32."""
     logits = logits.float()

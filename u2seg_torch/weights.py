@@ -28,13 +28,18 @@ layout changes:
   flipped as above; a RegNet block's norms numbered a, b, c, proj; MViT's
   ``s{stage}_b{i}`` numbered across stages.
 
-``projects_from_jax(module, params, batch_stats)`` maps the JAX trees of the
-project modules (``ASPP``, ``DepthwiseSeparableConv``, the DeepLab and
-Panoptic-DeepLab heads, ``DeformConv`` / ``ModulatedDeformConv``,
-``BatchNormBatchStats``) onto the port module's own names, which are the
-JAX package's (``b0`` ... ``b3``, ``pool_conv``, ``project``, ``aspp``,
-``dec1``, ...): convs transposed, a deformable ``kernel`` to ``weight``, and a
-module's ``norms.{i}`` from flax's ``{BatchNorm,GroupNorm,...}_{i}``.
+``projects_from_jax(module, params, batch_stats, constants)`` maps the JAX
+trees of the project modules (``ASPP``, ``DepthwiseSeparableConv``, the
+DeepLab and Panoptic-DeepLab heads, ``DeformConv`` / ``ModulatedDeformConv``,
+``BatchNormBatchStats``, PointRend's ``PointHead``, the TridentNet blocks,
+``TensorMask``, the DensePose chart and CSE heads and the vertex embedders)
+onto the port module's own names, which are the JAX package's (``b0`` ...
+``b3``, ``pool_conv``, ``project``, ``aspp``, ``dec1``, ``fc0``,
+``trident``, ``body_conv_fcn1``, ``embedder_{mesh}``, ...): convs
+transposed, a deformable or trident ``kernel`` to ``weight``, Dense kernels
+transposed, transposed-conv kernels flipped, a module's ``norms.{i}`` from
+flax's ``{BatchNorm,GroupNorm,...}_{i}``, and any other parameter by its own
+name (a buffer from the ``constants`` collection).
 
 ``dino_from_jax(params)`` does the same for the JAX ``DinoViT`` tree: it
 inverts ``convert_dino_vit`` (the patch kernel (p, p, 3, D) -> (D, 3, p, p),
@@ -90,14 +95,24 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
     from u2seg_torch.models.dense_detector import DenseHead
     from u2seg_torch.ops import deform_conv
 
+    from u2seg_torch.projects import densepose_cse, tensormask, tridentnet
+
     g = torch.Generator().manual_seed(seed)
-    # the project modules take flax's default conv init (lecun normal)
+    # the project modules take flax's default conv init (lecun normal),
+    # TensorMask's head normal(0.01) everywhere
     flax_default = tuple(name + "." if name else "" for name, mod in model.named_modules()
                          if isinstance(mod, _project_types()))
+    normal_001 = tuple(name + "." if name else "" for name, mod in model.named_modules()
+                       if isinstance(mod, tensormask.TensorMaskHead))
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (deform_conv.DeformConv, deform_conv.ModulatedDeformConv)):
                 deform_conv.reset_deform_parameters(mod, g)
+            if isinstance(mod, (densepose_cse.VertexDirectEmbedder,
+                                densepose_cse.VertexFeatureEmbedder)):
+                for p in mod.parameters(recurse=False):       # normal(0.01)
+                    p.copy_(torch.randn(p.shape, generator=g) * 0.01)
+                continue
             if isinstance(mod, (BatchNorm2d, GroupNorm, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)
@@ -111,7 +126,12 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
             fan_in, fan_out = _fans(w, isinstance(mod, nn.ConvTranspose2d))
             if name.endswith(("offset_conv", "offset_mask_conv")):
                 continue                               # zero, set with their module
-            if _lecun(name, mod) or (flax_default and name.startswith(flax_default)):
+            if isinstance(mod, tridentnet.TridentConv):
+                # variance_scaling(2.0, "fan_out", "normal")
+                w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(2.0 / fan_out))
+            elif normal_001 and name.startswith(normal_001):
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+            elif _lecun(name, mod) or (flax_default and name.startswith(flax_default)):
                 # variance_scaling(1.0, "fan_in", "truncated_normal")
                 w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), std=1.0,
                                                     a=-2.0, b=2.0, generator=g)
@@ -137,7 +157,7 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
             if name.endswith(_TABLES):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.02)
         for mod in model.modules():
-            if isinstance(mod, DenseHead):
+            if isinstance(mod, (DenseHead, tensormask.TensorMaskHead)):
                 # the classifier starts at the prior probability
                 p = mod.prior_prob
                 mod.cls_score.bias.fill_(-math.log((1 - p) / p))
@@ -396,17 +416,22 @@ def from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
 def _project_types():
     from u2seg_torch.ops.aspp import ASPP, DepthwiseSeparableConv
     from u2seg_torch.projects.deeplab import DeepLabV3Head, DeepLabV3PlusHead
+    from u2seg_torch.projects.densepose import DensePoseChartPredictor, DensePoseV1ConvXHead
+    from u2seg_torch.projects.densepose_cse import DensePoseEmbeddingPredictor
     from u2seg_torch.projects.panoptic_deeplab import PanopticDeepLabHead
+    from u2seg_torch.projects.pointrend import PointHead
+    from u2seg_torch.projects.tridentnet import TridentBlock
 
     return (ASPP, DepthwiseSeparableConv, DeepLabV3Head, DeepLabV3PlusHead,
-            PanopticDeepLabHead)
+            PanopticDeepLabHead, PointHead, TridentBlock, DensePoseV1ConvXHead,
+            DensePoseChartPredictor, DensePoseEmbeddingPredictor)
 
 
-def projects_from_jax(module: nn.Module, params: Mapping,
-                      batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+def projects_from_jax(module: nn.Module, params: Mapping, batch_stats: Mapping = None,
+                      constants: Mapping = None) -> Dict[str, torch.Tensor]:
     """The JAX variable trees of a project module (see the module doc) ->
     ``module``'s state dict (CPU f32 tensors). ``params`` / ``batch_stats``
-    are the module's own scopes."""
+    / ``constants`` are the module's own scopes."""
     from u2seg_torch.ops.deform_conv import DeformConv, ModulatedDeformConv
     from u2seg_torch.projects.rethinking_bn import BatchNormBatchStats
 
@@ -424,28 +449,41 @@ def projects_from_jax(module: nn.Module, params: Mapping,
             sd[dst + "running_mean"] = _np(stree["mean"])
             sd[dst + "running_var"] = _np(stree["var"])
 
-    def walk(mod, dst, ptree, stree):
+    def walk(mod, dst, ptree, stree, ctree):
         if isinstance(mod, BatchNorm2d) and not list(mod.children()):
             norm(dst, mod, ptree, stree)
             return
-        if isinstance(mod, (DeformConv, ModulatedDeformConv)):
+        deform = isinstance(mod, (DeformConv, ModulatedDeformConv))
+        if deform:
             sd[dst + "weight"] = _np(ptree["kernel"]).transpose(3, 2, 0, 1)
             if isinstance(mod, ModulatedDeformConv):
                 sd[dst + "bias"] = _np(ptree["bias"])
-        if isinstance(mod, nn.Conv2d):
-            sd[dst + "weight"] = _np(ptree["kernel"]).transpose(3, 2, 0, 1)
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            k = _np(ptree["kernel"])
+            if isinstance(mod, nn.ConvTranspose2d):
+                k = k[::-1, ::-1].transpose(2, 3, 0, 1)   # flax unflipped, torch flipped
+            elif isinstance(mod, nn.Linear):
+                k = k.T
+            else:
+                k = k.transpose(3, 2, 0, 1)
+            sd[dst + "weight"] = k
             if mod.bias is not None:
                 sd[dst + "bias"] = _np(ptree["bias"])
             return
+        for name, _ in [] if deform else mod.named_parameters(recurse=False):
+            sd[dst + name] = _np(ptree[name])
+        for name, _ in [] if deform else mod.named_buffers(recurse=False):
+            sd[dst + name] = _np(ctree[name])
         for name, child in mod.named_children():
             if name == "norms":
                 for i, nm in enumerate(child):
                     key = f"{flax_norm(nm)}_{i}"
                     norm(f"{dst}norms.{i}.", nm, ptree[key], stree.get(key, {}))
                 continue
-            walk(child, f"{dst}{name}.", ptree[name], stree.get(name, {}))
+            walk(child, f"{dst}{name}.", ptree.get(name, {}), stree.get(name, {}),
+                 ctree.get(name, {}))
 
-    walk(module, "", params, batch_stats or {})
+    walk(module, "", params, batch_stats or {}, constants or {})
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
