@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,train,train_cpu,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,projects2,projects2_cpu,demo,export,analyze,tools_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,matcher,train,train_cpu,overfit,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,projects2,projects2_cpu,demo,export,analyze,tools_cpu]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -257,6 +257,24 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
 33. tools_cpu: the tiny config in f32 (TF32 off, K1 on the card) exported
    and loaded on the card and on the CPU, and the demo on one image, card
    against CPU at ``eval_cpu``'s tolerances.
+
+34. matcher (after dataset_eval_cpu): the host C++ of ``u2seg_torch/_native``
+   built with g++ on the card's host (build seconds), then COCOeval on 64
+   images at the eval scene sizes with 100 detections per image (4-12 GT
+   over 8 categories, crowd GT, ellipse masks as RLE, boxes) through the C++
+   functions and through their numpy twins (``PlainCOCOeval``): IoU
+   matrices within 1e-12, dtm / gtm / dtIg equal, the 12 stats equal, for
+   segm and bbox; the C++ encode / decode / area / merge equal the numpy
+   codec. Prints ``evaluate()`` ms per image of both paths and
+   dataset_eval's COCOeval ms (C++ path);
+35. overfit (after train_cpu): K1 and K3 against their plain versions at the
+   tiny config's shapes (levels 16x16 .. 2x2, smaller than a span); then
+   ``u2seg_torch/dev/run_overfit.py`` on the card (the tiny config, lr 0.08,
+   150 steps on one fixed batch: the JAX script's assertions, 4 K1 + 4 K3
+   per step), and the default Config() at full width, 50 steps at lr 0.02
+   on one fixed b=2 800x1344 batch (finite, last-5 mean below first-5 mean,
+   4 + 4 launches per step). Prints both curves' first-5 / last-5 means, ms
+   per step, peak memory and the launches.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -2422,7 +2440,7 @@ def time_cocoeval(instances_json: str, outputs: dict, n_img: int) -> dict:
     t0 = time.perf_counter()
     res = ev.evaluate()
     ms = (time.perf_counter() - t0) * 1e3
-    log(f"[dataset-eval] COCOeval (bbox, numpy matcher) on the model's {n_det} boxes of "
+    log(f"[dataset-eval] COCOeval (bbox, C++ matcher) on the model's {n_det} boxes of "
         f"{n_img} images, clusters folded onto COCO thing ids: {ms:.1f} ms on the host "
         f"({ms / n_img:.2f} ms per image), AP {res['bbox']['AP']:.4f}")
     return {"detections": n_det, "ms": ms, "ms_per_image": ms / n_img}
@@ -5433,9 +5451,311 @@ def phase_tools_cpu(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase matcher: the host C++ behind COCOeval against its numpy twins
+# ---------------------------------------------------------------------------
+
+MATCHER_IMAGES = 64
+MATCHER_DETECTIONS = 100           # detections_per_image of U2Seg's test config
+MATCHER_CATS = (1, 2, 3, 4, 5, 6, 7, 8)
+
+
+def ellipse_mask(h: int, w: int, box) -> np.ndarray:
+    """A filled ellipse inscribed in the XYWH ``box``, on an (h, w) canvas."""
+    m = np.zeros((h, w), np.uint8)
+    x, y, bw, bh = box
+    x0, y0 = max(int(x), 0), max(int(y), 0)
+    x1, y1 = min(int(np.ceil(x + bw)), w), min(int(np.ceil(y + bh)), h)
+    if x1 <= x0 or y1 <= y0:
+        return m
+    yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float32) + 0.5
+    u = (xx - (x + bw / 2)) / (bw / 2)
+    v = (yy - (y + bh / 2)) / (bh / 2)
+    m[y0:y1, x0:x1] = u * u + v * v <= 1.0
+    return m
+
+
+def matcher_set(seed: int = 0):
+    """64 images at the eval scene sizes, 4-12 GT per image over 8 categories
+    (crowd ~10%), ellipse masks as compressed RLE; 100 detections per image:
+    jittered GT (70%, a fifth of them in another category) and false
+    positives, with score ties. Every detection has its box, its mask and
+    the mask's area. Masks are encoded by the C++ ``encode``."""
+    from u2seg_torch import _native
+
+    rng = np.random.RandomState(seed)
+    sizes = (EVAL_SIZES * (MATCHER_IMAGES // len(EVAL_SIZES) + 1))[:MATCHER_IMAGES]
+    images, gts, dts, masks = [], [], [], []
+    for i, (h, w) in enumerate(sizes):
+        images.append({"id": i + 1, "height": h, "width": w})
+        anns = []
+        for _ in range(rng.randint(4, 13)):
+            bw, bh = rng.uniform(12, 0.6 * w), rng.uniform(12, 0.6 * h)
+            box = [rng.rand() * (w - bw), rng.rand() * (h - bh), bw, bh]
+            m = ellipse_mask(h, w, box)
+            enc = _native.encode(m)
+            ann = {"id": len(gts) + 1, "image_id": i + 1,
+                   "category_id": int(rng.choice(MATCHER_CATS)), "bbox": box,
+                   "segmentation": {"size": enc["size"], "counts": enc["counts"].decode()},
+                   "area": float(m.sum()), "iscrowd": int(rng.rand() < 0.1)}
+            gts.append(ann)
+            anns.append(ann)
+            masks.append(m)
+        for _ in range(MATCHER_DETECTIONS):
+            if rng.rand() < 0.7:
+                a = anns[rng.randint(len(anns))]
+                box = (np.asarray(a["bbox"]) + rng.randn(4) * rng.choice([1.0, 6.0, 25.0])).tolist()
+                cat = a["category_id"] if rng.rand() < 0.8 else int(rng.choice(MATCHER_CATS))
+            else:
+                bw, bh = rng.uniform(8, 0.5 * w), rng.uniform(8, 0.5 * h)
+                box = [rng.rand() * (w - bw), rng.rand() * (h - bh), bw, bh]
+                cat = int(rng.choice(MATCHER_CATS))
+            box[2], box[3] = max(box[2], 2.0), max(box[3], 2.0)
+            m = ellipse_mask(h, w, box)
+            enc = _native.encode(m)
+            dts.append({"image_id": i + 1, "category_id": cat, "bbox": box,
+                        "segmentation": {"size": enc["size"], "counts": enc["counts"].decode()},
+                        "area": float(m.sum()),
+                        "score": float(rng.choice([0.9, 0.5, rng.rand()]))})
+            if len(masks) < 400:
+                masks.append(m)
+    gt = {"images": images, "annotations": gts,
+          "categories": [{"id": c, "name": str(c)} for c in MATCHER_CATS]}
+    return gt, dts, masks
+
+
+def codec_check(masks) -> dict:
+    """The C++ encode / decode / area / merge against the numpy codec."""
+    from u2seg_torch import _native
+    from u2seg_torch.evaluation import rle
+
+    for m in masks:
+        enc = rle.encode(m)
+        if (_native.encode(m)["counts"] != enc["counts"]
+                or not np.array_equal(_native.decode(enc), m)
+                or not _native.area(enc) == rle.area(enc) == int(m.sum())):
+            raise AssertionError("the C++ RLE codec disagrees with the numpy codec")
+    by_size = {}
+    for m in masks:
+        by_size.setdefault(m.shape, []).append(rle.encode(m))
+    for group in by_size.values():
+        for intersect in (False, True):
+            if (_native.merge(group[:6], intersect)["counts"]
+                    != rle.merge(group[:6], intersect)["counts"]):
+                raise AssertionError("the C++ merge disagrees with the numpy merge")
+    return {"masks": len(masks)}
+
+
+def phase_matcher(report: dict):
+    """The host matcher on the card's host: build, then COCOeval with the C++
+    functions against COCOeval on their numpy twins (``PlainCOCOeval``)."""
+    import copy
+
+    from u2seg_torch import _native
+    from u2seg_torch.evaluation.coco_api import COCO
+    from u2seg_torch.evaluation.coco_eval_core import COCOeval, PlainCOCOeval
+
+    t0 = time.perf_counter()
+    built_before = os.path.exists(_native.library_path())
+    path = _native.build()
+    build_s = time.perf_counter() - t0
+    log(f"[matcher] g++ {' '.join(_native.CXX_FLAGS)}: {os.path.basename(path)} "
+        f"{'found' if built_before else 'built'} in {build_s:.2f} s")
+    t0 = time.perf_counter()
+    gt, dts, masks = matcher_set()
+    set_s = time.perf_counter() - t0
+    codec = codec_check(masks)
+    log(f"[matcher] {MATCHER_IMAGES} images, {len(gt['annotations'])} GT "
+        f"({sum(a['iscrowd'] for a in gt['annotations'])} crowd), {len(dts)} detections "
+        f"({MATCHER_DETECTIONS} per image) drawn in {set_s:.1f} s; C++ encode, decode, area "
+        f"and merge == numpy on {codec['masks']} masks ok")
+    out = {"build_s": build_s, "built_before": built_before, "images": MATCHER_IMAGES,
+           "detections": len(dts)}
+    for kind in ("bbox", "segm"):
+        evs, ms = [], []
+        for cls in (COCOeval, PlainCOCOeval):
+            coco_gt = COCO(copy.deepcopy(gt))
+            ev = cls(coco_gt, coco_gt.loadRes(copy.deepcopy(dts)), iouType=kind)
+            t0 = time.perf_counter()
+            ev.evaluate()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ev.accumulate()
+            ev.summarize()
+            evs.append(ev)
+        nat, plain = evs
+        if nat.ious.keys() != plain.ious.keys():
+            raise AssertionError(f"{kind}: the IoU matrices cover other (image, category) pairs")
+        iou_err = max((float(np.abs(nat.ious[k] - plain.ious[k]).max())
+                       for k in nat.ious if nat.ious[k].size), default=0.0)
+        pairs = sum(v.size for v in nat.ious.values())
+        same = len(nat.evalImgs) == len(plain.evalImgs) and all(
+            (a is None) == (b is None) and (a is None or all(
+                np.array_equal(a[f], b[f]) for f in ("dtMatches", "gtMatches", "dtIgnore")))
+            for a, b in zip(nat.evalImgs, plain.evalImgs))
+        ok = iou_err <= 1e-12 and same and np.array_equal(nat.stats, plain.stats)
+        log(f"[matcher] {kind}: evaluate() C++ {ms[0]:.1f} ms ({ms[0] / MATCHER_IMAGES:.2f} "
+            f"per image), numpy {ms[1]:.1f} ms ({ms[1] / MATCHER_IMAGES:.2f} per image), "
+            f"x{ms[1] / ms[0]:.1f}; {pairs} IoU pairs, max|C++ - numpy| {iou_err:.1e}; "
+            f"dtm/gtm/dtIg {'equal' if same else 'DIFFER'}; AP {nat.stats[0]:.4f} / "
+            f"{plain.stats[0]:.4f}, 12 stats {'equal' if np.array_equal(nat.stats, plain.stats) else 'DIFFER'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kind}: the C++ matcher disagrees with its numpy twins")
+        out[kind] = {"ms": ms[0], "plain_ms": ms[1], "ms_per_image": ms[0] / MATCHER_IMAGES,
+                     "plain_ms_per_image": ms[1] / MATCHER_IMAGES, "iou_pairs": pairs,
+                     "max_iou_err": iou_err, "stats": nat.stats.tolist()}
+    if "dataset_eval" in report:
+        ce = report["dataset_eval"]["cocoeval"]
+        log(f"[matcher] dataset_eval's COCOeval (bbox, C++ matcher) on the model's "
+            f"{ce['detections']} boxes: {ce['ms']:.1f} ms, {ce['ms_per_image']:.2f} ms per image")
+        out["dataset_eval_cocoeval"] = ce
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase overfit: many train steps on one fixed batch must cut the loss
+# ---------------------------------------------------------------------------
+
+OVERFIT_STEPS = 150                 # the JAX package's dev/run_overfit_tpu.py
+FULL_OVERFIT_STEPS = 50
+TINY_HW = (64, 64)                  # testing.tiny_batch: FPN levels 16x16 .. 2x2
+
+
+def tiny_pyramid_check(rap, dev) -> float:
+    """K1 and K3 against their plain versions at the tiny config's shapes:
+    b=8 at 64x64, p2-p5 of 16x16 .. 2x2 (+ the 1x1 virtual level), C=256,
+    f32; R=256 at s=7 and R=64 at s=14 (GT-like boxes, proposals of 2-64
+    px, a zero box, a box past the corner): the levels are smaller than a
+    K1 span."""
+    (h, w), strides, c = TINY_HW, (4, 8, 16, 32), 256
+    gen = torch.Generator(device=dev).manual_seed(11)
+    feats = [torch.randn(8, h // st, w // st, c, generator=gen, device=dev) for st in strides]
+    rng = np.random.RandomState(11)
+    worst = 0.0
+    for s, n in ((7, 256), (14, 64)):
+        cx, cy = rng.rand(n) * w, rng.rand(n) * h
+        bw = np.exp(rng.uniform(np.log(2), np.log(64), n))
+        bh = bw * np.exp(rng.uniform(-1.0, 1.0, n))
+        b = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1).clip(0, w)
+        b[:2] = [[10.0, 10.0, 10.0, 10.0], [40.0, 44.0, 90.0, 100.0]]
+        boxes = torch.from_numpy(b.astype(np.float32)).to(dev)
+        bidx = torch.from_numpy(rng.randint(0, 8, n).astype(np.int32)).to(dev)
+        ref = rap.multilevel_roi_align_ref(feats, boxes, bidx, s, strides)
+        got = rap.multilevel_roi_align_kernel(feats, boxes, bidx, s, strides)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        if err > F32_TOL * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"K1 disagrees with its plain version at 64x64: s={s}, "
+                                 f"max|diff| {err:.3e}")
+        g = torch.randn(n, s, s, c, generator=gen, device=dev)
+        ext, st_ext = rap._append_virtual_level(feats, strides)
+        leaves = [f.clone().requires_grad_() for f in ext]
+        ref_g = torch.autograd.grad(
+            rap._ref_ext(leaves, boxes, bidx, s, st_ext, 2, 224.0, 4), leaves, g)
+        fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
+        got_g = rap.multilevel_roi_align_backward(rap.prepare_backward(
+            g, fa.roi_i, fa.roi_f, [tuple(f.shape) for f in ext], s, 2))
+        torch.cuda.synchronize()
+        for lvl, (a, b_) in enumerate(zip(got_g, ref_g)):
+            err = float((a - b_).abs().max())
+            worst = max(worst, err)
+            if err > F32_TOL * max(1.0, float(b_.abs().max())):
+                raise AssertionError(f"K3 disagrees with its plain version at 64x64: s={s} "
+                                     f"level {lvl}, max|diff| {err:.3e}")
+    log(f"[overfit] K1 and K3 at the tiny shapes (b=8, levels 16x16..2x2 + 1x1, C=256, f32, "
+        f"R=256 at s=7 / 64 at s=14): max|kernel-plain| {worst:.3e} "
+        f"(tol {F32_TOL:g} * max(1, max|plain|)) ok")
+    return worst
+
+
+def curve_summary(losses) -> dict:
+    return {"first5_mean": float(np.mean(losses[:5])), "last5_mean": float(np.mean(losses[-5:])),
+            "finite": bool(np.isfinite(losses).all())}
+
+
+def phase_overfit(dev):
+    """(a) ``dev/run_overfit.run_overfit`` on the card: the tiny config, lr
+    0.08, 150 steps, the JAX script's assertions; (b) the default Config()
+    at full width, 50 steps at lr 0.02 (warmup 2) on one fixed
+    ``train_batch(cfg, 2, 800, 1344)``: finite, last-5 mean below first-5."""
+    from u2seg_torch.config import Config
+    from u2seg_torch.dev.run_overfit import run_overfit
+    from u2seg_torch.engine.trainer import create_train_state, make_train_step, sampling_seed
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    check_err = tiny_pyramid_check(rap, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_counts()                                   # the main path starts
+    tiny = run_overfit(OVERFIT_STEPS, 0.08, device=dev, log=None)
+    k1, k3 = kernel_counts()                                # the main path ends
+    tiny_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    losses = tiny["total_loss"]
+    log("[overfit] tiny config (R50-FPN, 7 classes, f32, b=8 at 64x64), lr 0.08: total "
+        + " ".join(f"{losses[i]:.3f}" for i in range(0, OVERFIT_STEPS, 10))
+        + f" ... {losses[-1]:.3f}; rpn_cls {tiny['loss_rpn_cls'][0]:.3f} -> "
+        f"{tiny['loss_rpn_cls'][-1]:.3f}")
+    log(f"[overfit] tiny: first-5 mean {tiny['first5_mean']:.4f}, last-5 mean "
+        f"{tiny['last5_mean']:.4f} (< 0.8 x), last loss_rpn_cls {tiny['loss_rpn_cls'][-1]:.4f} "
+        f"(< 0.5); {tiny['seconds'] * 1e3 / OVERFIT_STEPS:.1f} ms per step, peak "
+        f"{tiny_peak:.0f} MiB; K1 {k1}, K3 {k3} launches {'ok' if tiny['ok'] else 'FAIL'}")
+    if not tiny["ok"]:
+        raise AssertionError(f"the tiny config did not learn: {curve_summary(losses)}, "
+                             f"last loss_rpn_cls {tiny['loss_rpn_cls'][-1]}")
+    if k1 != 4 * OVERFIT_STEPS or k3 != 4 * OVERFIT_STEPS:
+        raise AssertionError(f"expected {4 * OVERFIT_STEPS} + {4 * OVERFIT_STEPS} launches, "
+                             f"got {k1} + {k3}")
+
+    cfg = Config()
+    cfg.solver.base_lr = 0.02
+    cfg.solver.warmup_iters = 2
+    (h, w), b = TRAIN_HW, 2
+    state = create_train_state(cfg, device=dev, seed=0)
+    step = make_train_step(state.model, state.optimizer)
+    batch = train_batch(cfg, b, h, w).to(dev)
+    gen = torch.Generator(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_counts()                                   # the main path starts
+    full, ms = [], []
+    for i in range(FULL_OVERFIT_STEPS):
+        gen.manual_seed(sampling_seed(7, 0, i))
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        full.append(float(metrics["total_loss"]))           # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    fk1, fk3 = kernel_counts()                              # the main path ends
+    full_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    fs = curve_summary(full)
+    ok = fs["finite"] and fs["last5_mean"] < fs["first5_mean"]
+    log("[overfit] full width (default Config(): R50-FPN, cascade over 800 classes, masks, "
+        "28 sem-seg classes, bf16; b=2 at 800x1344), lr 0.02: total "
+        + " ".join(f"{full[i]:.3f}" for i in range(0, FULL_OVERFIT_STEPS, 5))
+        + f" ... {full[-1]:.3f}")
+    log(f"[overfit] full width: first-5 mean {fs['first5_mean']:.4f}, last-5 mean "
+        f"{fs['last5_mean']:.4f}; {float(np.median(ms[1:])):.1f} ms per step (median; first "
+        f"{ms[0]:.1f}), peak {full_peak:.0f} MiB; K1 {fk1}, K3 {fk3} launches "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the full-width run did not learn: {fs}")
+    if fk1 != 4 * FULL_OVERFIT_STEPS or fk3 != 4 * FULL_OVERFIT_STEPS:
+        raise AssertionError(f"expected {4 * FULL_OVERFIT_STEPS} + {4 * FULL_OVERFIT_STEPS} "
+                             f"launches, got {fk1} + {fk3}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    tiny_out = {k: v for k, v in tiny.items() if k != "device"}
+    return {"check_max_abs_err": check_err,
+            "tiny": dict(tiny_out, peak_mib=tiny_peak,
+                         ms_per_step=tiny["seconds"] * 1e3 / OVERFIT_STEPS),
+            "full": dict(fs, total_loss=full, ms=ms, peak_mib=full_peak),
+            "k1": k1 + fk1, "k3": k3 + fk3}
+
+
 def main():
     all_phases = ["k1", "k3", "k4", "k5", "serve", "cpu", "eval", "eval_cpu",
-                  "dataset_eval", "dataset_eval_cpu", "train", "train_cpu", "train_loop",
+                  "dataset_eval", "dataset_eval_cpu", "matcher", "train", "train_cpu",
+                  "overfit", "train_loop",
                   "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
                   "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu",
                   "projects2", "projects2_cpu", "demo", "export", "analyze", "tools_cpu"]
@@ -5506,12 +5826,17 @@ def main():
         torch.cuda.empty_cache()
     if "dataset_eval_cpu" in phases:
         report["dataset_eval_cpu"] = phase_dataset_eval_cpu(dev)
+    if "matcher" in phases:
+        report["matcher"] = phase_matcher(report)
     if "train" in phases:
         torch.cuda.empty_cache()
         report["train"] = phase_train(dev)
         torch.cuda.empty_cache()
     if "train_cpu" in phases:
         report["train_cpu_parity"] = phase_train_cpu_parity(dev)
+    if "overfit" in phases:
+        torch.cuda.empty_cache()
+        report["overfit"] = phase_overfit(dev)
     if "train_loop" in phases:
         torch.cuda.empty_cache()
         bare = (float(np.median([r["ms"] for r in report["train"]["steps"]]))
@@ -5589,16 +5914,19 @@ def main():
         slice12 = [report["augment"]["launches"], report["projects"]["launches"]]
         # the demo, the loaded exported program, analyze_model
         slice13 = [report[p]["k1"] for p in ("demo", "export", "analyze")]
-        # this slice's paths: the Mask R-CNN under DensePose, PointRend, PointSup
+        # the Mask R-CNN under DensePose, PointRend, PointSup
         slice14 = report["projects2"]["launches"]
+        # this slice's path: the overfit runs, tiny and full width
+        slice15 = report["overfit"]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
                         + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"]
-                        + sum(c["k1"] for c in slice12) + sum(slice13) + slice14["k1"])
+                        + sum(c["k1"] for c in slice12) + sum(slice13) + slice14["k1"]
+                        + slice15["k1"])
         bwd_launches = (tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
-                        + sum(c["k3"] for c in slice12) + slice14["k3"])
+                        + sum(c["k3"] for c in slice12) + slice14["k3"] + slice15["k3"])
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
                tr["backward_launches"],
-               *(c[k] for c in loops + slice12 + [slice14] for k in ("k1", "k3")),
+               *(c[k] for c in loops + slice12 + [slice14, slice15] for k in ("k1", "k3")),
                zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values(), *slice13) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes

@@ -1,4 +1,4 @@
-"""The port's COCOeval (``u2seg_torch/evaluation/coco_eval_core.py``, numpy
+"""The port's COCOeval (``u2seg_torch/evaluation/coco_eval_core.py``, its C++
 path only) against the JAX package's (which takes its C++ matcher where g++
 built it) on random bbox, segm and keypoint sets: ``precision``, ``recall``,
 ``scores`` and ``stats`` at atol 1e-12. Then against the reference's own C++

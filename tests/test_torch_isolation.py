@@ -83,7 +83,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             "ops/fusion.py", "projects/pointrend.py", "projects/pointsup.py",
             "projects/tridentnet.py", "projects/tensormask.py", "projects/densepose.py",
             "projects/densepose_cse.py", "projects/densepose_data.py",
-            "projects/densepose_eval.py", "tools/prepare_ade20k_sem_seg.py"} <= rel
+            "projects/densepose_eval.py", "tools/prepare_ade20k_sem_seg.py",
+            "_native/__init__.py", "dev/run_overfit.py"} <= rel
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported_names(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -1,6 +1,6 @@
-"""The training step on one device (counterpart of
-``u2seg_tpu/engine/trainer.py``: ``Batch``, ``create_train_state``,
-``make_train_step``).
+"""The training step on one device and the data-parallel inference step
+(counterpart of ``u2seg_tpu/engine/trainer.py``: ``Batch``,
+``create_train_state``, ``make_train_step``, ``make_eval_step``).
 
 One step is: forward in training mode (the loss dict), backward, then the
 optimizer's update (clipping, weight decay, momentum, scheduled LR). BatchNorm
@@ -16,14 +16,14 @@ process it takes no collective.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from u2seg_torch.config import Config
 from u2seg_torch.models.build import build_model
-from u2seg_torch.models.panoptic_fpn import PanopticFPN
+from u2seg_torch.models.panoptic_fpn import PanopticFPN, PanopticOutput
 from u2seg_torch.ops.norms import BatchNorm2d
 from u2seg_torch.parallel import comm
 from u2seg_torch.solver import ScheduledSGD, build_optimizer
@@ -123,5 +123,41 @@ def make_train_step(
             metrics = dict(zip(metrics, values.unbind(0)))
         optimizer.step()
         return metrics
+
+    return step
+
+
+def _gather_rows(tree: Any) -> Any:
+    """``comm.all_gather_rows`` over every tensor of a dataclass tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return comm.all_gather_rows(tree)
+    return dataclasses.replace(tree, **{f.name: _gather_rows(getattr(tree, f.name))
+                                        for f in dataclasses.fields(tree)})
+
+
+def make_eval_step(model: PanopticFPN, combine: bool = True
+                   ) -> Callable[[torch.Tensor, torch.Tensor], PanopticOutput]:
+    """-> ``step(images, image_sizes)``: the inference forward of ``model``
+    (eval mode, no gradient; with the panoptic fusion where ``combine``) on
+    a global batch, (B, H, W, 3) images and (B, 2) sizes. Each of the N
+    processes of the default group runs its rows ``[rank * B/N, (rank + 1)
+    * B/N)`` on the model's device, and the outputs are gathered over
+    ``parallel.comm`` in rank order, so every process returns the whole
+    batch's outputs, as the JAX step's ``out_specs=P("data")`` gives one
+    global array. With one process it is the model's forward."""
+    device = next(model.parameters()).device
+
+    def step(images: torch.Tensor, image_sizes: torch.Tensor) -> PanopticOutput:
+        world, rank = comm.get_world_size(), comm.get_rank()
+        if images.shape[0] % world:
+            raise ValueError(f"a batch of {images.shape[0]} does not split over {world} processes")
+        n = images.shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        model.eval()
+        out = model(images[rows].to(device), image_sizes[rows].to(device),
+                    train=False, combine=combine)
+        return _gather_rows(out) if world > 1 else out
 
     return step

@@ -1,11 +1,14 @@
-"""COCO AP evaluation core, pycocotools' ``COCOeval`` in numpy (counterpart
+"""COCO AP evaluation core, pycocotools' ``COCOeval`` on the host (counterpart
 of ``u2seg_tpu/evaluation/coco_eval_core.py``): score-sorted greedy matching
 with crowd handling, 101-point interpolated precision, the summarize table;
 bbox, segm and keypoints.
 
-The port takes the numpy path only. The JAX package swaps in its optional
-C++ matcher (``u2seg_tpu/_native``) where g++ built it; the results are the
-same either way.
+Mask IoU, box IoU and the greedy matching run in the host C++ of
+``u2seg_torch/_native`` (built with g++ at first use; it raises where it
+cannot be built), as the JAX package's do where g++ built its library. Their
+numpy twins (``rle._iou_plain``, ``_bbox_iou_xywh``, ``_match_plain``, used
+together by ``PlainCOCOeval``) give the same results and are the references
+the tests hold the C++ against.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from u2seg_torch import _native
 from u2seg_torch.evaluation import rle as rle_codec
 from u2seg_torch.evaluation.coco_api import COCO
 
@@ -52,6 +56,13 @@ class Params:
 
 
 class COCOeval:
+    #: (D, G) mask IoU, (D, G) XYWH box IoU and the per-image greedy
+    #: matching: the host C++ of ``u2seg_torch/_native``. ``PlainCOCOeval``
+    #: (below) names the numpy twins instead.
+    mask_iou = staticmethod(rle_codec.iou)
+    box_iou = staticmethod(_native.bbox_iou)
+    greedy_match = staticmethod(_native.cocoeval_match)
+
     def __init__(self, cocoGt: Optional[COCO] = None, cocoDt: Optional[COCO] = None,
                  iouType: str = "segm"):
         self.cocoGt = cocoGt
@@ -135,12 +146,12 @@ class COCOeval:
             g = [g_["rle"] for g_ in gt]
             d = [d_["rle"] for d_ in dt]
             iscrowd = [int(o.get("iscrowd", 0)) for o in gt]
-            return rle_codec.iou(d, g, iscrowd)
+            return self.mask_iou(d, g, iscrowd)
         elif p.iouType == "bbox":
             g = np.array([g_["bbox"] for g_ in gt], dtype=np.float64)
             d = np.array([d_["bbox"] for d_ in dt], dtype=np.float64)
             iscrowd = np.array([int(o.get("iscrowd", 0)) for o in gt])
-            return _bbox_iou_xywh(d, g, iscrowd)
+            return self.box_iou(d, g, iscrowd)
         elif p.iouType == "keypoints":
             return self.computeOks(dt, gt)
         raise ValueError(p.iouType)
@@ -212,29 +223,20 @@ class COCOeval:
         dtm = np.zeros((T, D))
         gtIg = np.array([g["_ignore"] for g in gt])
         dtIg = np.zeros((T, D))
+        out_of_area = np.array(
+            [d["area"] < aRng[0] or d["area"] > aRng[1] for d in dt], bool)
         if len(ious) != 0:
-            for tind, t in enumerate(p.iouThrs):
-                for dind, d in enumerate(dt):
-                    iou = min([t, 1 - 1e-10])
-                    m = -1
-                    for gind, g in enumerate(gt):
-                        if gtm[tind, gind] > 0 and not iscrowd[gind]:
-                            continue
-                        if m > -1 and gtIg[m] == 0 and gtIg[gind] == 1:
-                            break
-                        if ious[dind, gind] < iou:
-                            continue
-                        iou = ious[dind, gind]
-                        m = gind
-                    if m == -1:
-                        continue
-                    dtIg[tind, dind] = gtIg[m]
-                    dtm[tind, dind] = gt[m]["id"]
-                    gtm[tind, m] = d["id"]
-        a = np.array(
-            [d["area"] < aRng[0] or d["area"] > aRng[1] for d in dt]
-        ).reshape((1, len(dt)))
-        dtIg = np.logical_or(dtIg, np.logical_and(dtm == 0, np.repeat(a, T, 0)))
+            n_dtm, n_gtm, n_dti = self.greedy_match(
+                ious[:D], gtIg.astype(np.uint8), np.asarray(iscrowd, np.uint8),
+                np.asarray(p.iouThrs, np.float64), out_of_area.astype(np.uint8))
+            # 1-based match indices -> the matched annotation's id (0: none)
+            gt_ids = np.array([g["id"] for g in gt], np.int64)
+            dt_ids = np.array([d["id"] for d in dt], np.int64)
+            dtm = np.where(n_dtm > 0, gt_ids[np.maximum(n_dtm - 1, 0)], 0).astype(float)
+            gtm = np.where(n_gtm > 0, dt_ids[np.maximum(n_gtm - 1, 0)], 0).astype(float)
+            dtIg = n_dti.astype(float)
+        dtIg = np.logical_or(dtIg, np.logical_and(
+            dtm == 0, np.repeat(out_of_area.reshape(1, D), T, 0)))
         return {
             "image_id": imgId,
             "category_id": catId,
@@ -400,8 +402,43 @@ class COCOeval:
         return stats
 
 
+def _match_plain(ious: np.ndarray, gt_ignore: np.ndarray, iscrowd: np.ndarray,
+                 iou_thrs: np.ndarray, dt_out_of_area: np.ndarray):
+    """``_native.cocoeval_match`` in Python (its reference): for each
+    threshold, each detection in score order takes the best still-free gt
+    (a crowd gt stays free) at IoU >= the threshold, and stops at the
+    ignored gts once it holds a real one. -> (dtm, gtm, dt_ignore) with
+    1-based match indices (0 = unmatched)."""
+    d_n, g_n = ious.shape
+    t_n = len(iou_thrs)
+    dtm = np.zeros((t_n, d_n), np.int64)
+    gtm = np.zeros((t_n, g_n), np.int64)
+    dti = np.zeros((t_n, d_n), np.uint8)
+    for tind, t in enumerate(iou_thrs):
+        for dind in range(d_n):
+            iou = min([t, 1 - 1e-10])
+            m = -1
+            for gind in range(g_n):
+                if gtm[tind, gind] > 0 and not iscrowd[gind]:
+                    continue
+                if m > -1 and gt_ignore[m] == 0 and gt_ignore[gind] == 1:
+                    break
+                if ious[dind, gind] < iou:
+                    continue
+                iou = ious[dind, gind]
+                m = gind
+            if m == -1:
+                dti[tind, dind] = dt_out_of_area[dind]
+                continue
+            dti[tind, dind] = gt_ignore[m]
+            dtm[tind, dind] = m + 1
+            gtm[tind, m] = dind + 1
+    return dtm, gtm, dti
+
+
 def _bbox_iou_xywh(d: np.ndarray, g: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
-    """bbIou from pycocotools maskApi.c: XYWH boxes, crowd uses dt area."""
+    """bbIou from pycocotools maskApi.c: XYWH boxes, crowd uses dt area
+    (the reference of ``_native.bbox_iou``)."""
     D, G = len(d), len(g)
     out = np.zeros((D, G))
     for gi in range(G):
@@ -420,3 +457,12 @@ def _bbox_iou_xywh(d: np.ndarray, g: np.ndarray, iscrowd: np.ndarray) -> np.ndar
             u = da if iscrowd[gi] else da + ga - i
             out[di, gi] = i / u
     return out
+
+
+class PlainCOCOeval(COCOeval):
+    """COCOeval on the numpy twins of the C++ functions: the reference the
+    C++ path is held against (the tests, ``chip_smoke.py``), not a path of
+    the port's evaluators."""
+    mask_iou = staticmethod(rle_codec._iou_plain)
+    box_iou = staticmethod(_bbox_iou_xywh)
+    greedy_match = staticmethod(_match_plain)

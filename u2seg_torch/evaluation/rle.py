@@ -1,7 +1,10 @@
-"""COCO run-length-encoding codec and mask operations in numpy (counterpart
-of ``u2seg_tpu/evaluation/rle.py``): encode/decode/area for the predictor's
+"""COCO run-length-encoding codec and mask operations (counterpart of
+``u2seg_tpu/evaluation/rle.py``): encode/decode/area for the predictor's
 records; merge, iou, to_bbox and frPyObjects (polygon rasterisation with
-pycocotools' ``rleFrPoly`` walk) for the COCO API and COCOeval.
+pycocotools' ``rleFrPoly`` walk) for the COCO API and COCOeval. ``iou``
+runs in the host C++ of ``u2seg_torch/_native`` (built with g++ at first
+use; it raises where it cannot be built); ``_iou_plain`` is its numpy twin.
+Everything else here is numpy.
 
 The wire format is pycocotools': column-major (Fortran) run lengths that
 start with a background run, compressed to the 6-bit delta string of
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+
+from u2seg_torch import _native
 
 RLE = Dict[str, Union[bytes, str, List[int], Sequence[int]]]
 
@@ -109,8 +114,14 @@ def merge(rles: Sequence[RLE], intersect: bool = False) -> RLE:
 
 def iou(dt: Sequence[RLE], gt: Sequence[RLE], iscrowd: Sequence[int]) -> np.ndarray:
     """Pairwise mask IoU matrix (D, G), crowd gt uses inter/area(dt)
-    (mask_util.iou semantics). The numpy path only: the JAX package's
-    optional C++ matcher is not part of the port."""
+    (mask_util.iou semantics): the run lists merge-walked in C++
+    (``_native.iou``), equal to ``_iou_plain``."""
+    return _native.iou(dt, gt, iscrowd)
+
+
+def _iou_plain(dt: Sequence[RLE], gt: Sequence[RLE], iscrowd: Sequence[int]) -> np.ndarray:
+    """``iou`` in numpy: every mask decoded, every pair ANDed (the reference
+    of the C++ one)."""
     d, g = len(dt), len(gt)
     out = np.zeros((d, g), dtype=np.float64)
     if d == 0 or g == 0:

@@ -32,3 +32,11 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, out_h: int,
     wx = _axis_weights(boxes[:, 0], boxes[:, 2], out_w, m)     # (K, W, M)
     tmp = torch.bmm(wy, masks.to(torch.float32))               # (K, H, M)
     return torch.bmm(tmp, wx.transpose(1, 2))                  # (K, H, W)
+
+
+def paste_masks_scaled(masks: torch.Tensor, boxes: torch.Tensor, out_h: int,
+                       out_w: int, stride: int) -> torch.Tensor:
+    """Paste into a coarser canvas (e.g. stride 4 for the panoptic fusion):
+    ``boxes`` in input-image coordinates, the canvas (out_h, out_w) at
+    ``stride`` pixels per cell."""
+    return paste_masks(masks, boxes / float(stride), out_h, out_w)

@@ -4,7 +4,8 @@
 With no process group initialised every helper is the world-of-one case:
 rank 0 of 1, no collective. Objects travel by ``all_gather_object`` (pickle);
 ``all_reduce_mean_`` and ``broadcast_`` move tensors, each in one
-collective over one flat buffer.
+collective over one flat buffer; ``all_gather_rows`` concatenates every
+process's rows of a tensor.
 """
 from __future__ import annotations
 
@@ -124,3 +125,15 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         flat = _flat(group)
         dist.broadcast(flat, src)
         _unflat_(flat, group)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every process's ``t`` (one shape and dtype on all of them)
+    concatenated along dim 0 in rank order, on ``t``'s device."""
+    world = get_world_size()
+    if world == 1:
+        return t
+    x = t.to(_collective_device()).contiguous()
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    return torch.cat(parts).to(t.device)

@@ -15,6 +15,22 @@ import torch
 #: clamp on dw/dh — log(max box scale change)
 SCALE_CLAMP = math.log(1000.0 / 16)
 
+#: box encodings (detectron2's BoxMode values)
+XYXY_ABS = 0
+XYWH_ABS = 1
+
+
+def convert_mode(boxes: torch.Tensor, from_mode: int, to_mode: int) -> torch.Tensor:
+    """Convert between XYXY_ABS and XYWH_ABS box encodings."""
+    if from_mode == to_mode:
+        return boxes
+    x0, y0, a, b = boxes.unbind(-1)
+    if from_mode == XYWH_ABS and to_mode == XYXY_ABS:
+        return torch.stack([x0, y0, x0 + a, y0 + b], dim=-1)
+    if from_mode == XYXY_ABS and to_mode == XYWH_ABS:
+        return torch.stack([x0, y0, a - x0, b - y0], dim=-1)
+    raise ValueError(f"Unsupported conversion {from_mode} -> {to_mode}")
+
 
 def area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of XYXY boxes; negative extents clamp to 0. Shape (...,)."""
@@ -44,6 +60,19 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (w > threshold) & (h > threshold)
 
 
+def centers(boxes: torch.Tensor) -> torch.Tensor:
+    """Box centres (..., 2)."""
+    return (boxes[..., :2] + boxes[..., 2:]) * 0.5
+
+
+def scale(boxes: torch.Tensor, scale_x: float, scale_y: float) -> torch.Tensor:
+    """Boxes scaled by ``scale_x`` along x and ``scale_y`` along y (the
+    factors are cast to the boxes' dtype first)."""
+    f = torch.tensor([scale_x, scale_y, scale_x, scale_y], dtype=boxes.dtype,
+                     device=boxes.device)
+    return boxes * f
+
+
 def pairwise_intersection(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Intersection areas, shape (..., N, M)."""
     lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
@@ -60,6 +89,34 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     union = a1 + a2 - inter
     iou = inter / torch.clamp(union, min=1e-12)
     return torch.where(union > 0, iou, torch.zeros_like(iou))
+
+
+def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Intersection over the area of ``boxes2``, shape (..., N, M); zero
+    where that area is."""
+    inter = pairwise_intersection(boxes1, boxes2)
+    a2 = area(boxes2)[..., None, :]
+    ioa = inter / torch.clamp(a2, min=1e-12)
+    return torch.where(a2 > 0, ioa, torch.zeros_like(ioa))
+
+
+def matched_pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Element-wise IoU of aligned box lists, shape (...,)."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(boxes1) + area(boxes2) - inter
+    iou = inter / torch.clamp(union, min=1e-12)
+    return torch.where(union > 0, iou, torch.zeros_like(iou))
+
+
+def pairwise_point_box_distance(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Distances from each point (P, 2) to the four sides of each box (M, 4):
+    (P, M, 4) as (left, top, right, bottom), positive inside the box."""
+    x, y = points[:, None, 0], points[:, None, 1]
+    x0, y0, x1, y1 = (boxes[None, :, i] for i in range(4))
+    return torch.stack([x - x0, y - y0, x1 - x, y1 - y], dim=-1)
 
 
 def get_deltas(

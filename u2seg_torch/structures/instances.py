@@ -70,3 +70,15 @@ class GtInstances:
         return GtInstances(*(None if t is None else t[rows]
                              for t in (self.boxes, self.classes, self.valid,
                                        self.masks, self.keypoints)))
+
+
+def pad_to(x: torch.Tensor, n: int, axis: int = 0, value=0) -> torch.Tensor:
+    """Pad (with ``value``) or truncate ``x`` along ``axis`` to length ``n``."""
+    cur = x.shape[axis]
+    if cur == n:
+        return x
+    if cur > n:
+        return x.narrow(axis, 0, n)
+    shape = list(x.shape)
+    shape[axis] = n - cur
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=axis)

@@ -42,11 +42,12 @@ def _smi() -> str:
 
 
 def collect_env_info() -> str:
-    """Versions, the card and the port's kernel libraries, one per line. The
+    """Versions, the card and the port's native libraries, one per line. The
     last lines say for each ``csrc/*.cu`` whether its library is built at
-    ``_cuda.library_path(name)`` (the counterpart of the JAX package's
+    ``_cuda.library_path(name)``, and whether the host matcher of
+    ``u2seg_torch/_native`` is (the JAX package prints its
     ``_native.available()``)."""
-    from u2seg_torch import _cuda
+    from u2seg_torch import _cuda, _native
 
     lines = [
         f"sys.platform: {sys.platform}",
@@ -67,4 +68,9 @@ def collect_env_info() -> str:
         name = src[:-3]
         path = _cuda.library_path(name)
         lines.append(f"kernel {name}: {'built' if os.path.exists(path) else 'not built'} ({path})")
+    try:
+        path = _native.library_path()
+        lines.append(f"native rle_ops: {'built' if os.path.exists(path) else 'not built'} ({path})")
+    except RuntimeError as e:
+        lines.append(f"native rle_ops: unavailable ({e})")
     return "\n".join(lines)
