@@ -1,6 +1,6 @@
 """Smoke run of the u2seg_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,matcher,train,train_cpu,overfit,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,projects2,projects2_cpu,demo,export,analyze,tools_cpu]
+    python3 chip_smoke.py [--report PATH] [--phases k1,k3,k4,k5,serve,cpu,eval,eval_cpu,dataset_eval,dataset_eval_cpu,matcher,train,train_cpu,overfit,train_loop,ddp,ddp_cpu,train_net,train_net_cpu,pseudo,pseudo_cpu,zoo,zoo_cpu,augment,semisup,rotated,projects,projects_cpu,projects2,projects2_cpu,demo,export,analyze,tools_cpu,train_det,lazy,video]
 
 Phases (each prints one or more lines; any failure raises and exits non-zero;
 with no ``--phases`` all of them run, which is what the last line vouches for):
@@ -20,12 +20,14 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    L2 exceeded (rotating over 4 copies of levels and output);
    k3: the backward kernel against autograd of the twin at the train path's
    shapes (b=2 at 800x1344; R=1024 at s=7, R=256 at s=14; f32 and bf16
-   levels, f32 cotangent), the budget-edge boxes and R=0 included, and at
-   C=72; its device time the same way (each launch first zero-fills 183 MB
-   of gradient levels, which exceeds L2, so every launch finds its inputs
-   cold); two runs on the same inputs (its atomics add in another order each
-   time): max|run1 - run2| and the share of elements that differ, and the
-   backward must raise under ``torch.use_deterministic_algorithms(True)``;
+   levels, f32 cotangent), the budget-edge boxes and R=0 included, at C=72,
+   on boxes far over the budget and on the tiny config's levels (16x16 ..
+   2x2, smaller than a span); its device time the same way (a call is the
+   routing launch, the sort of its keys and the gather launch, which writes
+   183 MB of gradient levels, more than L2 holds); two runs on
+   the same inputs must give the same bits (max|run1 - run2| == 0, no element
+   differs) in f32 and bf16, and so must a run under
+   ``torch.use_deterministic_algorithms(True)``;
 4. serve: the default Config() at full width (R50-FPN, 3-stage cascade over
    800 classes, masks, 28 sem-seg classes, bf16) with seeded weights serves 4
    requests (3 at 800x1216, 1 at 512x832, b=1); the forward kernel's launch
@@ -276,6 +278,27 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    4 + 4 launches per step). Prints both curves' first-5 / last-5 means, ms
    per step, peak memory and the launches.
 
+36. train_det (after train): the train step of phase train under
+   ``torch.use_deterministic_algorithms(True)`` (cudnn.benchmark off,
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which this script sets before CUDA
+   initialises): two runs of 3 steps from a fresh seeded state, the same
+   batch and generator seed must give bit-identical losses, parameters and
+   BN statistics, 4 K1 + 4 K3 per step; step time with the flag beside a
+   third run without it;
+37. lazy (after train_net_cpu): ``lazyconfig_train_net.main`` on a python
+   LazyConfig (``base = LazyCall(Config)(...)``: the default Config() at
+   full width with its datasets on 16 synthetic files, b=2, 4 loader
+   threads; ``train = dict(max_iter=4, ...)``) on the card, then
+   ``--resume`` to 6 steps: finite losses, 4 K1 + 4 K3 per step, the
+   checkpoints, resume at iteration 4; ms per step beside phase train's
+   bare step;
+38. video (after demo): ``VisualizationDemo.run_on_video`` over 8
+   numpy-drawn 480x640 frames of moving shapes with each tracker of
+   ``utils/tracking.py``: 4 K1 per frame, finite outputs, one drawn frame per
+   input frame, a track id kept over consecutive frames (the model's
+   detections; the shapes' own boxes as scripted instances too); ms per
+   frame of predict, track and draw.
+
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
@@ -288,8 +311,12 @@ import os
 import sys
 import time
 
-import numpy as np
-import torch
+# cuBLAS repeats its sums only with a fixed workspace; torch's deterministic
+# mode (phase train_det) refuses a matmul without it. Read when CUDA starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -397,8 +424,8 @@ def work_of(rap, feats, boxes, bidx, s, strides, in_bytes, out_bytes):
 
 def span_stats(rap, feats, boxes, s, strides):
     """What the span kernels touch: cells in all ROIs' spans (each block
-    reads or writes its own span), the mean span, and the cells some bin
-    touches on both axes (one vector atomic per 4 channels in the backward)."""
+    reads its own span), the mean span, and the cells some bin touches on
+    both axes (those the backward adds a ROI's cotangent into)."""
     ext, st = rap._append_virtual_level(feats, strides)
     dims = tuple((f.shape[1], f.shape[2]) for f in ext)
     wy, wx, _ = rap.dense_axis_weights(boxes, dims, st, s, 2)
@@ -642,8 +669,8 @@ def phase_kernel_backward(dev):
     version is autograd of ``multilevel_roi_align_ref`` on the card.
 
     Tolerances. f32 levels (TF32 off): 1e-4 * max(1, max|plain grad|) -- the
-    kernel sums with atomics, whose order changes from run to run, the plain
-    version with index_put. bf16 levels: both accumulate in f32 and round
+    kernel sums each cell's ROIs in ascending index, the plain version with
+    index_put, in another order. bf16 levels: both accumulate in f32 and round
     once to bf16, so they differ by a bf16 rounding of nearly equal sums:
     rtol 0.05, atol 0.03 * max(1, max|plain grad|) / 8."""
     from u2seg_torch.ops import roi_align_ml as rap
@@ -713,7 +740,9 @@ def phase_kernel_backward(dev):
         if rap.kernel_shared_bytes(True, s) != shared:
             raise AssertionError("the library and the wrapper disagree on shared memory")
         rec["ms"] = graph_ms([lambda: rap.multilevel_roi_align_backward(ba)], iters=10)
-        rec["fill_ms"] = graph_ms([lambda: [t.zero_() for t in ba.grads]], iters=10)
+        rec["wrapper_ms"] = cuda_ms(lambda: rap.multilevel_roi_align_backward(ba), iters=20)
+        n_tiles = rap.backward_tiles(shapes)[1][-1]
+        pairs = int((ba.keys < n_tiles * n).sum())
         rec["fwd_ms"] = cuda_ms(lambda: rap.launch(fa), iters=20)
         feats_p = [f.requires_grad_() for f in feats]
         out_p = rap.multilevel_roi_align_ref(feats_p, boxes, bidx, s, strides)
@@ -727,37 +756,54 @@ def phase_kernel_backward(dev):
         rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    chunk=rap.CHUNK, threads=256, shared_bytes=shared,
+                   tile=rap.BACKWARD_TILE, tiles=n_tiles, pairs=pairs,
                    spans=span_stats(rap, feats, boxes, s, strides))
-        sp = rec["spans"]
-        log(f"[k3] s={s} R={n} timing (bf16 levels, f32 cotangent; zero-fill of "
-            f"{sum(t.numel() for t in ba.grads) * 4 / 1e6:.0f} MB + kernel, so every launch "
-            f"finds L2 exceeded; device time of 10 launches in one CUDA graph): "
-            f"{rec['ms']:.4f} ms (chunk {rap.CHUNK}, 256 threads, "
-            f"{shared} B shared); the zero-fill alone (torch zero_) {rec['fill_ms']:.4f} ms; "
+        log(f"[k3] s={s} R={n} timing (bf16 levels, f32 cotangent; the gather writes "
+            f"{sum(t.numel() for t in ba.grads) * 4 / 1e6:.0f} MB of gradient levels, no "
+            f"zero fill before it; device time of 10 calls in one CUDA graph, each the "
+            f"routing launch, the sort of its keys and the gather launch): "
+            f"{rec['ms']:.4f} ms (chunk {rap.CHUNK}, 256 threads, {shared} B shared, "
+            f"{n_tiles} tiles of {rap.BACKWARD_TILE}x{rap.BACKWARD_TILE} cells x "
+            f"{-(-c // rap.CHUNK)} chunks, {pairs} (tile, ROI) pairs: "
+            f"{pairs / max(n, 1):.2f} tiles per ROI); the wrapper launched call by call "
+            f"(CUDA events around 20 calls, host enqueue included) {rec['wrapper_ms']:.4f} "
+            f"ms; "
             f"plain (autograd of the twin) {rec['plain_ms']:.3f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB = "
             f"cotangent read once + every f32 gradient cell written once, "
             f"{flops / 1e9:.2f} GFLOP) -> {rec['ms'] / rec['bound_ms']:.1f}x its bound; "
-            f"16-byte atomics {sp['touched_cells'] * c // 4}; forward kernel at these shapes (f32 out) "
+            f"forward kernel at these shapes (f32 out) "
             f"{rec['fwd_ms']:.4f} ms; library call: none (no single PyTorch op "
             f"computes the window transpose and its scatter)")
         rec["repeat"] = k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides)
         results[s] = rec
     results["narrow"] = narrow_backward_check(rap, dev)
+    results["tiny"] = tiny_pyramid_check(rap, dev, "k3")
     return results
 
 
 def k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides):
-    """K3 adds with atomics whose order changes from run to run: two runs on
-    the same inputs (bf16 levels, f32 cotangent: the train path's types), its
-    f32 level gradients and the bf16 gradients the model receives. Then the
-    backward under torch's deterministic mode must raise."""
+    """K3 sums each gradient cell's ROIs in ascending index: two runs on the
+    same inputs (bf16 levels, f32 cotangent: the train path's types) must
+    give the same bits, in its f32 level gradients and in the bf16 gradients
+    the model receives; so must a run under
+    ``torch.use_deterministic_algorithms(True)`` (which also fills the
+    gradient levels with NaN before the kernel: a cell it did not write
+    would show)."""
     runs = []
     for _ in range(2):
         runs.append([t.clone() for t in rap.multilevel_roi_align_backward(ba)])
     leaves = [f.detach().clone().requires_grad_() for f in feats]
     out = rap.multilevel_roi_align_train(leaves, boxes, bidx, s, strides)
     bf = [torch.autograd.grad(out, leaves, g, retain_graph=True) for _ in range(2)]
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = rap.multilevel_roi_align_backward(rap.prepare_backward(
+            g, ba.roi_i, ba.roi_f, [tuple(t.shape) for t in ba.grads], s, 2))
+        bf_det = torch.autograd.grad(out, leaves, g)
+    finally:
+        torch.use_deterministic_algorithms(before)
     torch.cuda.synchronize()
 
     def diff(a_list, b_list):
@@ -765,29 +811,22 @@ def k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides):
         n = sum(t.numel() for t in d)
         return dict(max_abs=max(float(t.max()) for t in d),
                     share=sum(int((t != 0).sum()) for t in d) / n,
+                    equal=all(torch.equal(a, b) for a, b in zip(a_list, b_list)),
                     grad_max=max(float(a.float().abs().max()) for a in a_list))
 
-    rec = dict(f32=diff(*runs), bf16=diff(*bf))
-    before = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        torch.autograd.grad(out, leaves, g)
-        raised = False
-    except RuntimeError as e:
-        raised = "deterministic" in str(e)
-    finally:
-        torch.use_deterministic_algorithms(before)
+    rec = dict(f32=diff(*runs), bf16=diff(*bf), f32_det=diff(runs[0], det),
+               bf16_det=diff(bf[0], bf_det))
+    ok = all(r["equal"] and r["max_abs"] == 0 and r["share"] == 0 for r in rec.values())
     f, b = rec["f32"], rec["bf16"]
-    ok = raised and f["max_abs"] <= F32_TOL * max(1.0, f["grad_max"])
     log(f"[k3] s={s} R={boxes.shape[0]} two runs on the same inputs: f32 level gradients "
         f"max|run1-run2| {f['max_abs']:.3e} (max|grad| {f['grad_max']:.2f}), "
         f"{f['share']:.3%} of elements differ; bf16 gradients max|run1-run2| "
         f"{b['max_abs']:.3e}, {b['share']:.4%} differ; under "
-        f"torch.use_deterministic_algorithms(True) the backward raises: {raised} "
+        f"torch.use_deterministic_algorithms(True) the backward runs and gives the same "
+        f"bits: f32 {rec['f32_det']['equal']}, bf16 {rec['bf16_det']['equal']} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"K3 repeatability or its deterministic-mode check failed: {rec}")
-    rec["raises"] = raised
+        raise AssertionError(f"K3 is not repeatable bit for bit: {rec}")
     return rec
 
 
@@ -1114,6 +1153,91 @@ def phase_train(dev, steps: int = 4, warmup: int = 2):
     return dict(steps=rows, forward_launches=fwd, backward_launches=bwd,
                 profile=dict(wall_ms=wall_ms, device_ms=dev_ms,
                              launches_per_step=n_launch, top=top, ours=ours))
+
+
+DET_STEPS = 3
+
+
+def phase_train_deterministic(dev):
+    """The train step of phase train (``make_train_step`` at the default
+    Config(), b=2 at 800x1344, bf16) under
+    ``torch.use_deterministic_algorithms(True)`` with
+    ``torch.backends.cudnn.benchmark = False`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (this script sets it before CUDA
+    initialises): two runs of ``DET_STEPS`` steps, each from a fresh
+    ``create_train_state(seed=0)``, the same batch and a generator of the
+    same seed, must give bit-identical losses, parameters and BN statistics,
+    with 4 K1 + 4 K3 launches per step. A third run without the flag gives
+    the step time beside it (steps after the first, host clock to a
+    synchronise). No op is exempted: the flag is on for the whole step."""
+    from u2seg_torch.config import Config
+    from u2seg_torch.engine.trainer import create_train_state, make_train_step
+
+    cfg = Config()
+    (h, w), b = TRAIN_HW, 2
+    batch = train_batch(cfg, b, h, w).to(dev)
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark)
+
+    def run(deterministic: bool):
+        torch.use_deterministic_algorithms(deterministic)
+        torch.backends.cudnn.benchmark = False
+        state = create_train_state(cfg, device=dev, seed=0)
+        step = make_train_step(state.model, state.optimizer)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        losses, ms = [], []
+        start = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        torch.cuda.synchronize()
+        reset_kernel_counts()                              # the main path starts
+        for _ in range(DET_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in metrics.items()})
+        counts = kernel_counts()                           # the main path ends
+        tensors = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        moved = sum(not torch.equal(start[k], v) for k, v in tensors.items())
+        del state, step, start
+        torch.cuda.empty_cache()
+        return dict(losses=losses, ms=ms, counts=counts, tensors=tensors, moved=moved)
+
+    try:
+        runs = [run(True), run(True)]
+        plain = run(False)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.benchmark = saved[1]
+    a, b_ = runs
+    same_losses = a["losses"] == b_["losses"]
+    differ = [k for k in a["tensors"] if not torch.equal(a["tensors"][k], b_["tensors"][k])]
+    moved = a["moved"]
+    finite = all(np.isfinite(v) for r in a["losses"] for v in r.values())
+    launches = [r["counts"] for r in runs + [plain]]
+    det_ms = float(np.median([m for r in runs for m in r["ms"][1:]]))
+    plain_ms = float(np.median(plain["ms"][1:]))
+    loss_gap = max(abs(x[k] - y[k]) for x, y in zip(a["losses"], plain["losses"]) for k in x)
+    ok = (same_losses and not differ and finite and moved > 0
+          and all(c == (4 * DET_STEPS, 4 * DET_STEPS) for c in launches))
+    log(f"[train_det] {DET_STEPS} steps of the default Config() at b={b}, {h}x{w} under "
+        f"torch.use_deterministic_algorithms(True), cudnn.benchmark False, "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}: total losses "
+        + ", ".join(f"{r['total_loss']:.6f}" for r in a["losses"])
+        + f"; two runs: losses bit-identical {same_losses}, {len(differ)} of "
+        f"{len(a['tensors'])} parameters and buffers differ ({moved} moved from the init); "
+        f"K1/K3 launches per run {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[train_det] step time (median of steps 2-{DET_STEPS}): with the flag "
+        f"{det_ms:.1f} ms ({', '.join(f'{m:.1f}' for r in runs for m in r['ms'])}), without "
+        f"{plain_ms:.1f} ms ({', '.join(f'{m:.1f}' for m in plain['ms'])}) -> "
+        f"{det_ms / plain_ms:.3f}x; max|loss with - without| {loss_gap:.3e} ({smi_line()})")
+    if not ok:
+        raise AssertionError(f"the deterministic train step failed: losses {a['losses']} vs "
+                             f"{b_['losses']}, differing tensors {differ[:8]}, launches "
+                             f"{launches}")
+    k1 = sum(c[0] for c in launches)
+    k3 = sum(c[1] for c in launches)
+    return dict(losses=a["losses"], det_ms=det_ms, plain_ms=plain_ms,
+                ms=[r["ms"] for r in runs + [plain]], loss_gap=loss_gap, k1=k1, k3=k3)
 
 
 def phase_train_cpu_parity(dev):
@@ -2682,6 +2806,7 @@ class TimedLoader:
     def __init__(self, loader, keep: bool = False):
         self.loader, self.keep = loader, keep
         self.waits, self.counts, self.batches, self.bad = [], [], [], []
+        self.spans = []                    # (start, end) of each next(), host clock
 
     def __iter__(self):
         return self
@@ -2690,7 +2815,9 @@ class TimedLoader:
         self.counts.append(kernel_counts())
         t0 = time.perf_counter()
         b = next(self.loader)
-        self.waits.append((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
+        self.waits.append((t1 - t0) * 1e3)
+        self.spans.append((t0, t1))
         valid, masks, boxes = b["gt_valid"], b["gt_masks"], b["gt_boxes"]
         hw = b["image_size"][:, None, :].astype(np.float32)
         inside = ((boxes[..., :2] >= 0) & (boxes[..., 2:] <= hw[..., ::-1])
@@ -3054,6 +3181,128 @@ def phase_train_net_cpu(dev):
         raise AssertionError(f"train_net card vs CPU: {losses}, {launches}")
     return dict(worst_rel=worst, launches=dict(k1=launches["gpu"][0], k3=launches["gpu"][1]))
 
+
+
+# ---------------------------------------------------------------------------
+# LazyConfig training: lazyconfig_train_net
+# ---------------------------------------------------------------------------
+
+LAZY_SIZES = EVAL_SIZES * 2               # 16 scenes, the eval phase's four sizes
+LAZY_STEPS, LAZY_RESUMED = 4, 6
+LAZY_CONFIG = """from u2seg_torch.config import Config, DataloaderConfig, DatasetsConfig, SolverConfig
+from u2seg_torch.lazy import LazyCall
+
+base = LazyCall(Config)(
+    datasets=LazyCall(DatasetsConfig)(root={root!r}, train=({name!r},)),
+    solver=LazyCall(SolverConfig)(ims_per_batch=2),
+    dataloader=LazyCall(DataloaderConfig)(num_workers=4),
+)
+train = dict(max_iter={steps}, output_dir={out!r})
+"""
+
+
+def phase_lazy(dev, bare_ms=None):
+    """``u2seg_torch.tools.lazyconfig_train_net.main`` on a python LazyConfig
+    the phase writes: ``base = LazyCall(Config)(...)``, the default Config()
+    at full width (R50-FPN, 3-stage cascade over 800 classes, masks, 28
+    sem-seg classes, bf16) with its datasets pointed at 16 files of
+    ``write_synthetic_u2seg_train`` (as phase train_net writes them), 2
+    images per batch and 4 loader threads, and ``train = dict(max_iter=4,
+    output_dir=...)``. It trains on the card (the tool's default device)
+    through ``plain_train_net.do_train``, then ``--resume`` with
+    ``train.max_iter=6``. Fails unless every total loss is finite, each step
+    launches 4 K1 and 4 K3, the checkpoints exist and the resumed run starts
+    at iteration 4 (its checkpoint's iteration + 1; it draws 2 batches and
+    ends at optimizer step 6). Prints ms per step (host clock between two
+    batch draws, the data wait excluded) beside phase train's bare step."""
+    import json as json_mod
+    import tempfile
+
+    from u2seg_torch.engine.checkpoint import Checkpointer
+    from u2seg_torch.testing import write_synthetic_u2seg_train
+    from u2seg_torch.tools import lazyconfig_train_net
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "datasets")
+        ds = write_synthetic_u2seg_train(data, LAZY_SIZES, 800, seed=23)
+        forget_dataset(ds.dataset)
+        out = os.path.join(tmp, "out")
+        cfg_file = os.path.join(tmp, "lazy_u2seg.py")
+        with open(cfg_file, "w") as f:
+            f.write(LAZY_CONFIG.format(root=data, name=ds.dataset, steps=LAZY_STEPS, out=out))
+        log(f"[lazy] wrote {len(LAZY_SIZES)} training scenes and {cfg_file.split(os.sep)[-1]} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with loader_probe() as probe:
+            reset_kernel_counts()                        # the main path starts
+            t0 = time.perf_counter()
+            state = lazyconfig_train_net.main(["--config-file", cfg_file])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            end = kernel_counts()                        # the main path ends
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            steps = per_step_launches(probe.loaders[0], end)
+            first_step, device = state.step, next(state.model.parameters()).device
+            del state
+            torch.cuda.empty_cache()
+            ckptr = Checkpointer(out)
+            ckpt = ckptr.get_checkpoint_file()
+            start_iter = int(ckptr.load(ckpt, map_location="cpu")["iteration"]) + 1
+            reset_kernel_counts()                        # the resumed path starts
+            state = lazyconfig_train_net.main(["--config-file", cfg_file, "--resume",
+                                               f"train.max_iter={LAZY_RESUMED}"])
+            end2 = kernel_counts()                       # the resumed path ends
+            steps2 = per_step_launches(probe.loaders[1], end2)
+            resumed_step = state.step
+            del state
+            torch.cuda.empty_cache()
+            ckpt2 = Checkpointer(out).get_checkpoint_file()
+            with open(os.path.join(out, "metrics.json")) as f:
+                lines = [json_mod.loads(ln) for ln in f if ln.strip()]
+            spans = [probe.loaders[i].spans for i in (0, 1)]
+            for tl in probe.loaders:
+                tl.close()
+        totals = [ln["total_loss"] for ln in lines if "total_loss" in ln]
+        # a step: from the end of one draw to the start of the next
+        step_ms = [[(b[0] - a[1]) * 1e3 for a, b in zip(sp, sp[1:])] for sp in spans]
+    all_steps = steps + steps2
+    res = dict(steps=steps, resumed_steps=steps2, start_iter=start_iter,
+               ckpts=[ckpt, ckpt2], totals=totals, step_ms=step_ms, train_s=train_s,
+               peak_mib=peak, launches=dict(k1=sum(s_[0] for s_ in all_steps),
+                                            k3=sum(s_[1] for s_ in all_steps)))
+    warm = [v for run in step_ms for v in run[1:]]       # each run's first step warms up
+    med = float(np.median(warm)) if warm else float("nan")
+    log(f"[lazy] lazyconfig_train_net.main on {device}: {LAZY_STEPS} steps "
+        f"(optimizer step {first_step}), then --resume train.max_iter={LAZY_RESUMED}: "
+        f"start_iter {start_iter} (checkpoint {ckpt}), optimizer step {resumed_step}, last "
+        f"checkpoint {ckpt2}; total losses in metrics.json "
+        + ", ".join(f"{v:.4f}" for v in totals)
+        + f"; K1/K3 launches per step {all_steps}; peak memory {peak:.0f} MiB")
+    log(f"[lazy] ms per step (from the end of one batch draw to the start of the next, "
+        f"so the last step of each run is not timed): "
+        + "; ".join(", ".join(f"{v:.1f}" for v in run) for run in step_ms)
+        + f"; median without each run's first {med:.1f} ms"
+        + (f"; phase train's bare step in this run: median {bare_ms:.1f} ms -> ratio "
+           f"{med / bare_ms:.3f}" if bare_ms else "") + f" ({smi_line()})")
+    problems = []
+    if device.type != "cuda":
+        problems.append(f"trained on {device}")
+    if not (totals and all(np.isfinite(totals))):
+        problems.append(f"losses {totals}")
+    if any(s_ != (4, 4) for s_ in all_steps) or len(all_steps) != LAZY_RESUMED:
+        problems.append(f"K1/K3 launches per step {all_steps}")
+    if (start_iter != LAZY_STEPS or first_step != LAZY_STEPS or resumed_step != LAZY_RESUMED
+            or len(steps2) != LAZY_RESUMED - LAZY_STEPS
+            or [ckpt, ckpt2] != [f"model_{LAZY_STEPS - 1:07d}", f"model_{LAZY_RESUMED - 1:07d}"]):
+        problems.append(f"resume: start_iter {start_iter}, steps {first_step} -> "
+                        f"{resumed_step}, checkpoints {[ckpt, ckpt2]}")
+    log(f"[lazy] gates: on the card, finite losses, 4 + 4 launches per step, resume at "
+        f"{LAZY_STEPS}: {'ok' if not problems else 'FAIL ' + '; '.join(problems)}")
+    if problems:
+        raise AssertionError("lazyconfig_train_net failed: " + "; ".join(problems))
+    res.update(median_ms=med, bare_ms=bare_ms)
+    return res
 
 
 PSEUDO_SIZES = EVAL_SIZES[:4] * 64        # 256 scenes, 8 instances each: 2048 crops
@@ -5295,6 +5544,158 @@ def phase_demo(dev):
                 k1=launches + cli_launches, cli_s=cli_s)
 
 
+VIDEO_FRAMES, VIDEO_HW = 8, (480, 640)
+TRACKERS = ("BBoxIOUTracker", "VanillaHungarianBBoxIOUTracker",
+            "IOUWeightedHungarianBBoxIOUTracker")
+
+
+def video_frames(rng, n: int, h: int, w: int):
+    """``n`` RGB uint8 frames drawn with numpy: a smooth background and 3-5
+    filled shapes (rectangles and ellipses, one color each) that move 4-8 px
+    per frame. Returns the frames and, per frame, the shapes' boxes (XYXY)
+    in shape order."""
+    k = rng.randint(3, 6)
+    size = rng.uniform(60, 140, (k, 2))
+    step = rng.uniform(4, 8, (k, 2)) * rng.choice([-1, 1], (k, 2))
+    drift = 8 * n                                     # the shapes stay inside the frame
+    pos = rng.uniform([drift, drift], [w - 140 - drift, h - 140 - drift], (k, 2))
+    colors = rng.randint(0, 256, (k, 3))
+    ellipse = rng.rand(k) < 0.5
+    yy, xx = np.mgrid[:h, :w]
+    base = np.stack([96 + 64 * np.sin(xx / 57.0), 96 + 64 * np.cos(yy / 43.0),
+                     128 + 0 * xx], -1)
+    frames, boxes = [], []
+    for t in range(n):
+        img = base.copy()
+        box = []
+        for i in range(k):
+            x0, y0 = pos[i] + t * step[i]
+            x1, y1 = x0 + size[i, 0], y0 + size[i, 1]
+            if ellipse[i]:
+                cx, cy, rx, ry = (x0 + x1) / 2, (y0 + y1) / 2, size[i, 0] / 2, size[i, 1] / 2
+                inside = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+            else:
+                inside = (xx >= x0) & (xx < x1) & (yy >= y0) & (yy < y1)
+            img[inside] = colors[i]
+            box.append([max(x0, 0), max(y0, 0), min(x1, w), min(y1, h)])
+        frames.append(img.clip(0, 255).astype(np.uint8))
+        boxes.append(np.array(box, np.float32))
+    return frames, boxes
+
+
+class timed_call:
+    """Calls ``fn`` and adds each call's host time (ms) to ``self.ms``."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def kept_ids(prev, cur, iou_min: float = 0.5) -> tuple:
+    """Detections of one frame (boxes, classes, ids) against the previous
+    frame's: the mutually best pairs of one class at IoU >= ``iou_min``, and
+    how many of them kept their track id."""
+    from u2seg_torch.utils.tracking import _pairwise_iou_xyxy
+
+    (pb, pc, pi), (cb, cc, ci) = prev, cur
+    if not len(pb) or not len(cb):
+        return 0, 0
+    iou = np.where(cc[:, None] == pc[None, :], _pairwise_iou_xyxy(cb, pb), 0.0)
+    pairs = [(i, j) for i, j in enumerate(iou.argmax(1))
+             if iou[i, j] >= iou_min and iou[:, j].argmax() == i]
+    return len(pairs), int(sum(ci[i] == pi[j] for i, j in pairs))
+
+
+def phase_video(dev):
+    """``VisualizationDemo.run_on_video`` (predict, ``tracker.update``,
+    ``VideoVisualizer``) over 8 numpy-drawn 480x640 frames of 3-5 moving
+    shapes, once with each tracker of ``utils/tracking.py``; the model is
+    phase demo's (the default Config() at full width, seeded calibrated
+    weights). Fails unless every frame launches 4 K1, every output is finite,
+    one drawn frame of the input's shape comes out per frame, every tracker
+    gives one id per instance, unique within a frame, and a track id
+    persists: of the model's detections in consecutive frames that are each
+    other's best match (one class, IoU >= 0.5), at least one keeps its id
+    (the share is printed; seeded weights detect mostly the same boxes in
+    every frame, not the shapes). The trackers are also handed scripted
+    instances, the shapes' own boxes frame by frame, which must keep their
+    ids over all 8 frames. Prints ms per frame of predict, track and draw."""
+    from u2seg_torch.demo.predictor import VisualizationDemo
+    from u2seg_torch.ops.roi_align_ml import multilevel_roi_align_kernel as k1
+    from u2seg_torch.utils import tracking
+
+    cfg, model = demo_model(dev)
+    frames, shape_boxes = video_frames(np.random.RandomState(17), VIDEO_FRAMES, *VIDEO_HW)
+    demo = VisualizationDemo(cfg, device=dev, model=model)
+    demo.run_on_image(frames[0])                      # warm-up
+    torch.cuda.synchronize()
+    predictor = demo.predictor
+    rows, problems = {}, []
+    for name in TRACKERS:
+        tracker = tracking.build_tracker_head(name)
+        demo.predictor = timed_call(predictor)
+        tracker.update = timed_call(tracker.update)
+        drawn, seen, total_ms = [], [], []
+        k1.launches = 0                               # the main path starts
+        t0 = time.perf_counter()
+        for pred, ids, img in demo.run_on_video(frames, tracker):
+            total_ms.append((time.perf_counter() - t0) * 1e3)
+            inst = pred["instances"]
+            boxes = np.asarray(inst["boxes"], np.float64).reshape(-1, 4)
+            finite = all(np.isfinite(np.asarray(inst[k], np.float64)).all()
+                         for k in ("boxes", "scores", "masks") if k in inst)
+            seen.append((boxes, np.asarray(inst["classes"]), np.asarray(ids), finite))
+            drawn.append(img)
+            t0 = time.perf_counter()
+        launches = k1.launches                        # the main path ends
+        predict_ms, track_ms = demo.predictor.ms, tracker.update.ms
+        draw_ms = [t - p - k for t, p, k in zip(total_ms, predict_ms, track_ms)]
+        kept = [kept_ids(a[:3], b[:3]) for a, b in zip(seen, seen[1:])]
+        # scripted instances: the shapes' own boxes
+        scripted = tracking.build_tracker_head(name)
+        script_ids = [scripted.update({"boxes": b, "classes": np.zeros(len(b), np.int64)})
+                      for b in shape_boxes]
+        row = dict(launches=launches, frames=len(drawn),
+                   instances=[len(x[0]) for x in seen],
+                   predict_ms=float(np.median(predict_ms)), track_ms=float(np.median(track_ms)),
+                   draw_ms=float(np.median(draw_ms)),
+                   pairs=sum(p for p, _ in kept), pairs_kept=sum(k for _, k in kept),
+                   script_ids=[ids.tolist() for ids in script_ids])
+        rows[name] = row
+        log(f"[video] {name}: {row['frames']} frames, K1 launches {launches}, instances per "
+            f"frame {row['instances']}; per frame (median) predict {row['predict_ms']:.1f} ms, "
+            f"track {row['track_ms']:.2f} ms, draw {row['draw_ms']:.1f} ms; the model's "
+            f"detections: {row['pairs_kept']} of {row['pairs']} mutually best pairs of "
+            f"consecutive frames kept their id; scripted shapes' ids per frame "
+            f"{row['script_ids'][0]} ... {row['script_ids'][-1]} ({smi_line()})")
+        if launches != 4 * VIDEO_FRAMES:
+            problems.append(f"{name}: {launches} K1 launches for {VIDEO_FRAMES} frames")
+        if len(drawn) != VIDEO_FRAMES or any(d.shape != f.shape or d.dtype != np.uint8
+                                             for d, f in zip(drawn, frames)):
+            problems.append(f"{name}: drawn frames {[d.shape for d in drawn]}")
+        if not all(x[3] for x in seen):
+            problems.append(f"{name}: non-finite outputs")
+        if any(len(x[2]) != len(x[0]) or len(set(x[2].tolist())) != len(x[2]) for x in seen):
+            problems.append(f"{name}: track ids not one per instance")
+        if any(ids.tolist() != script_ids[0].tolist() for ids in script_ids):
+            problems.append(f"{name}: scripted shapes changed ids {row['script_ids']}")
+        if row["pairs_kept"] < 1:
+            problems.append(f"{name}: no detection kept its id over consecutive frames "
+                            f"({row['pairs']} mutually best pairs)")
+    demo.predictor = predictor
+    log(f"[video] gates: 4 K1 per frame, one drawn frame per input frame, finite outputs, "
+        f"one id per instance, a detection's track id kept, scripted tracks kept: "
+        f"{'ok' if not problems else 'FAIL ' + '; '.join(problems)}")
+    if problems:
+        raise AssertionError("video path failed: " + "; ".join(problems))
+    return dict(rows=rows, k1=sum(r["launches"] for r in rows.values()))
+
+
 def flat_agreement(got, ref, names) -> dict:
     """Card vs card (or card vs CPU) flat outputs of an exported forward:
     max|a-b| / max|b| of every float output, the share of equal elements of
@@ -5621,7 +6022,7 @@ FULL_OVERFIT_STEPS = 50
 TINY_HW = (64, 64)                  # testing.tiny_batch: FPN levels 16x16 .. 2x2
 
 
-def tiny_pyramid_check(rap, dev) -> float:
+def tiny_pyramid_check(rap, dev, tag: str = "overfit") -> float:
     """K1 and K3 against their plain versions at the tiny config's shapes:
     b=8 at 64x64, p2-p5 of 16x16 .. 2x2 (+ the 1x1 virtual level), C=256,
     f32; R=256 at s=7 and R=64 at s=14 (GT-like boxes, proposals of 2-64
@@ -5663,7 +6064,7 @@ def tiny_pyramid_check(rap, dev) -> float:
             if err > F32_TOL * max(1.0, float(b_.abs().max())):
                 raise AssertionError(f"K3 disagrees with its plain version at 64x64: s={s} "
                                      f"level {lvl}, max|diff| {err:.3e}")
-    log(f"[overfit] K1 and K3 at the tiny shapes (b=8, levels 16x16..2x2 + 1x1, C=256, f32, "
+    log(f"[{tag}] K1 and K3 at the tiny shapes (b=8, levels 16x16..2x2 + 1x1, C=256, f32, "
         f"R=256 at s=7 / 64 at s=14): max|kernel-plain| {worst:.3e} "
         f"(tol {F32_TOL:g} * max(1, max|plain|)) ok")
     return worst
@@ -5758,7 +6159,8 @@ def main():
                   "overfit", "train_loop",
                   "ddp", "ddp_cpu", "train_net", "train_net_cpu", "pseudo", "pseudo_cpu",
                   "zoo", "zoo_cpu", "augment", "semisup", "rotated", "projects", "projects_cpu",
-                  "projects2", "projects2_cpu", "demo", "export", "analyze", "tools_cpu"]
+                  "projects2", "projects2_cpu", "demo", "export", "analyze", "tools_cpu",
+                  "train_det", "lazy", "video"]
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every number as JSON here")
     ap.add_argument("--phases", default=",".join(all_phases),
@@ -5832,6 +6234,10 @@ def main():
         torch.cuda.empty_cache()
         report["train"] = phase_train(dev)
         torch.cuda.empty_cache()
+    if "train_det" in phases:
+        torch.cuda.empty_cache()
+        report["train_det"] = phase_train_deterministic(dev)
+        torch.cuda.empty_cache()
     if "train_cpu" in phases:
         report["train_cpu_parity"] = phase_train_cpu_parity(dev)
     if "overfit" in phases:
@@ -5855,6 +6261,12 @@ def main():
         torch.cuda.empty_cache()
     if "train_net_cpu" in phases:
         report["train_net_cpu"] = phase_train_net_cpu(dev)
+    if "lazy" in phases:
+        torch.cuda.empty_cache()
+        bare = (float(np.median([r["ms"] for r in report["train"]["steps"]]))
+                if "train" in report else None)
+        report["lazy"] = phase_lazy(dev, bare)
+        torch.cuda.empty_cache()
     if "pseudo" in phases:
         torch.cuda.empty_cache()
         report["pseudo"] = phase_pseudo(dev)
@@ -5890,6 +6302,9 @@ def main():
     if "demo" in phases:
         torch.cuda.empty_cache()
         report["demo"] = phase_demo(dev)
+    if "video" in phases:
+        torch.cuda.empty_cache()
+        report["video"] = phase_video(dev)
     if "export" in phases:
         torch.cuda.empty_cache()
         report["export"] = phase_export(dev)
@@ -5916,18 +6331,25 @@ def main():
         slice13 = [report[p]["k1"] for p in ("demo", "export", "analyze")]
         # the Mask R-CNN under DensePose, PointRend, PointSup
         slice14 = report["projects2"]["launches"]
-        # this slice's path: the overfit runs, tiny and full width
+        # the overfit runs, tiny and full width
         slice15 = report["overfit"]
+        # this slice's paths: the deterministic train step, lazyconfig_train_net
+        # and the demo's video loop (K1 only)
+        slice16 = [report["train_det"], report["lazy"]["launches"]]
+        video = report["video"]["k1"]
         fwd_launches = (report["launches"] + eval_launches + dataset_launches
                         + tr["forward_launches"] + sum(c["k1"] for c in loops) + zoo["k1"]
                         + sum(c["k1"] for c in slice12) + sum(slice13) + slice14["k1"]
-                        + slice15["k1"])
+                        + slice15["k1"] + sum(c["k1"] for c in slice16) + video)
         bwd_launches = (tr["backward_launches"] + sum(c["k3"] for c in loops) + zoo["k3"]
-                        + sum(c["k3"] for c in slice12) + slice14["k3"] + slice15["k3"])
+                        + sum(c["k3"] for c in slice12) + slice14["k3"] + slice15["k3"]
+                        + sum(c["k3"] for c in slice16))
         if min(report["launches"], eval_launches, dataset_launches, tr["forward_launches"],
                tr["backward_launches"],
-               *(c[k] for c in loops + slice12 + [slice14, slice15] for k in ("k1", "k3")),
-               zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values(), *slice13) < 1:
+               *(c[k] for c in loops + slice12 + [slice14, slice15] + slice16
+                 for k in ("k1", "k3")),
+               zoo["k1"], zoo["k3"], k4["launches"], *k5["launches"].values(), *slice13,
+               video) < 1:
             raise AssertionError("a kernel of a main path was never launched")
         probe_rows = {r["mode"]: r for r in reversed(k5["rows"])}   # the 32 x 40 shapes
         report["record"] = {"kernels": [{

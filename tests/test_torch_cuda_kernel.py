@@ -4,8 +4,8 @@ channel width for each dtype pair, levels smaller than the window, what
 they reject), the single-level window ROIAlign (the same span design: main
 shapes, a ragged width, bins taller than its stage buffer, no ROIs, what it
 rejects), the shared memory each library reports, the two window-read
-probe kernels, and the backward kernel's two-run difference and its refusal
-under torch's deterministic mode.
+probe kernels, and the backward kernel's bits: equal over two runs, and
+equal again under torch's deterministic mode.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -14,10 +14,11 @@ JAX, so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernel.py
 
 Tolerances: f32 (TF32 off) 1e-4 * max(1, max|plain|); bf16 at the AMP
-tolerance (rtol 0.05, atol 0.03). The backward kernel adds with atomics,
-whose order changes from run to run: its f32 gradients are held to autograd of
-the twin at 1e-4 * max(1, max|plain grad|), its bf16 ones (one rounding of an
-f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain grad|) / 8. The
+tolerance (rtol 0.05, atol 0.03). The backward kernel sums each cell's ROIs
+in ascending index, in another order than autograd of the twin: its f32
+gradients are held to the twin at 1e-4 * max(1, max|plain grad|), its bf16
+ones (one rounding of an f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain
+grad|) / 8, and two of its runs to each other bit for bit. The
 single-level kernel accumulates and writes f32 for every input type: 1e-4 *
 max(1, max|plain|) for f32 and for bf16 maps alike. The probe kernels sum
 bf16 values in f32 in another order than the plain version: rtol 1e-5, atol
@@ -172,6 +173,9 @@ def test_libraries_and_wrappers_agree_on_shared_memory(dev):
             s, rap.forward_plan(s)[1])
     for s in (1, 7, 14, 32):
         assert ras.kernel_shared_bytes(s) == ras.shared_bytes(s, ras.launch_plan(s)[1])
+    for s in (7, 14):
+        assert rap.kernel_backward_layout(s) == (rap.BACKWARD_TILE, rap.backward_slots(),
+                                                 rap.record_bytes(s))
 
 
 @pytest.mark.parametrize("s", [7, 14])
@@ -220,12 +224,11 @@ def test_backward_kernel_through_channels_last_views_and_no_rois(dev):
     assert empty.shape == (0, 7, 7, feats[0].shape[-1])
 
 
-def test_backward_kernel_repeats_to_rounding_and_refuses_deterministic_mode(dev):
+def test_backward_kernel_repeats_bit_for_bit_also_in_deterministic_mode(dev):
     """At the train step's shapes (b=2 at 800x1344, C=256, bf16 levels, f32
-    cotangent, R=1024 at s=7) two backward runs on the same inputs differ at
-    most by the rounding of f32 sums in another order (the atomics' order
-    changes); under torch's deterministic mode the backward raises, and with
-    ``warn_only`` it warns and runs."""
+    cotangent, R=1024 at s=7) two backward runs on the same inputs give the
+    same bits (each gradient cell sums its ROIs in ascending index), and
+    under torch's deterministic mode the backward runs and gives them again."""
     gen = torch.Generator(device=dev).manual_seed(5)
     feats = [torch.randn(2, 800 // st, 1344 // st, 256, generator=gen, device=dev)
              .to(torch.bfloat16).requires_grad_() for st in STRIDES]
@@ -237,20 +240,16 @@ def test_backward_kernel_repeats_to_rounding_and_refuses_deterministic_mode(dev)
     g = torch.randn(1024, 7, 7, 256, generator=gen, device=dev)
     out = rap.multilevel_roi_align_train(feats, boxes, bidx, 7, STRIDES)
     runs = [torch.autograd.grad(out, feats, g, retain_graph=True) for _ in range(2)]
-    torch.cuda.synchronize()
-    for a, b in zip(*runs):
-        scale = max(1.0, float(b.float().abs().max()))
-        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * scale
     before = torch.are_deterministic_algorithms_enabled()
     try:
         torch.use_deterministic_algorithms(True)
-        with pytest.raises(RuntimeError, match="deterministic"):
-            torch.autograd.grad(out, feats, g, retain_graph=True)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with pytest.warns(UserWarning, match="deterministic"):
-            torch.autograd.grad(out, feats, g)
+        runs.append(torch.autograd.grad(out, feats, g))
     finally:
         torch.use_deterministic_algorithms(before)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(sum(t.float().abs().sum() for t in runs[0])) > 0
 
 
 # ---------------------------------------------------------------------------

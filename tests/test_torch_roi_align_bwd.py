@@ -1,16 +1,25 @@
-"""The plain version of the ROIAlign backward kernel vs the JAX package.
+"""The plain versions of the ROIAlign backward kernel vs the JAX package.
 
 The port's backward kernel (CUDA) is held on the card against autograd of
-``multilevel_roi_align_ref``; here that plain version is held against the JAX
-package on the CPU, two ways:
+``multilevel_roi_align_ref``; here its plain versions are held against the
+JAX package on the CPU:
 
 (a) ``jax.grad`` of the JAX ``multilevel_roi_align_ref`` w.r.t. the real
     levels (the virtual level's gradient arrives through the 2x average
     pool);
 (b) ``_ml_bwd_features``, the JAX package's plain reference of its Pallas
-    backward kernel, w.r.t. the EXTENDED level list (virtual level last).
+    backward kernel, w.r.t. the EXTENDED level list (virtual level last);
+(c) the kernel's own algorithm in plain PyTorch,
+    ``ordered_backward_reference`` (per tile, the ROIs of its routing list
+    in ascending index), against ``jax.grad`` of the JAX
+    ``multilevel_roi_align_train``, whose backward is the Pallas kernel
+    ``_ml_bwd_kernel``, run as the JAX package's tests run it on the CPU
+    (``pallas_call(interpret=True)``), and against autograd of the twin; its
+    routing lists against a brute-force intersection of spans and tiles.
 
 Tolerance: f32, 1e-5 * max|grad| per level (the sums run in another order).
+Under ``torch.use_deterministic_algorithms(True)`` the twin and the routing
+run, and two runs give the same bits.
 """
 import jax
 import jax.numpy as jnp
@@ -152,28 +161,132 @@ def test_gradient_reaches_channels_last_nchw_maps():
         _close(leaf.grad.permute(0, 2, 3, 1), r.numpy(), "nchw leaf")
 
 
-@pytest.mark.parametrize("warn_only", [False, True])
-def test_deterministic_mode_refuses_the_atomic_backward(warn_only):
-    """The CUDA backward adds with atomics: under torch's deterministic mode
-    its check raises (warns with ``warn_only``); the CPU twin never reaches
-    it and runs under the flag."""
+def _routing_case(name, s):
+    """The extended levels, the kernel's ROI tables and the shapes."""
+    levels, boxes, bidx, g = _case(name, s)
+    ext, strides = rap._append_virtual_level([torch.from_numpy(l) for l in levels],
+                                             STRIDES)
+    fa = rap._prepare_ext(ext, torch.from_numpy(boxes), torch.from_numpy(bidx), s, 2,
+                          strides, 224.0, 4, torch.float32)
+    return ext, strides, fa, [tuple(f.shape) for f in ext], boxes, bidx, g
+
+
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("name", sorted(BOXES))
+def test_routing_lists_equal_a_brute_force_intersection(name, s):
+    """Tile t of ``backward_routing`` lists, in ascending index, every ROI on
+    its level and image whose span widened by one cell meets the tile's
+    8 x 8 cells; the span here comes from the twin's per-sample weights
+    (``_ml_geometry``), the tiles are enumerated one by one."""
+    ext, strides, fa, shapes, boxes, bidx, _ = _routing_case(name, s)
+    starts, rois = rap.backward_routing(fa.roi_i, fa.roi_f, shapes, s, 2)
+    dims = tuple(sh[1:3] for sh in shapes)
+    wy, wx, _, prep, _ = rap._ml_geometry(torch.from_numpy(boxes), torch.from_numpy(bidx),
+                                          dims, strides, s, 2, 224.0, 4)
+    ys, xs = (wy.numpy() != 0).any(1), (wx.numpy() != 0).any(1)
+    lvl, oy, ox = prep["lvl"].numpy(), prep["oy"].numpy(), prep["ox"].numpy()
+    t = rap.BACKWARD_TILE
+    expected = []
+    for level, (_, h, w, _) in enumerate(shapes):
+        for b in range(B):
+            for y0 in range(0, h, t):
+                for x0 in range(0, w, t):
+                    hit = []
+                    for roi in range(len(boxes)):
+                        cy, cx = np.flatnonzero(ys[roi]), np.flatnonzero(xs[roi])
+                        if lvl[roi] != level or bidx[roi] != b or not (len(cy) and len(cx)):
+                            continue
+                        y_lo, y_hi = max(oy[roi] + cy[0] - 1, 0), min(oy[roi] + cy[-1] + 1, h - 1)
+                        x_lo, x_hi = max(ox[roi] + cx[0] - 1, 0), min(ox[roi] + cx[-1] + 1, w - 1)
+                        if y_lo < y0 + t and y_hi >= y0 and x_lo < x0 + t and x_hi >= x0:
+                            hit.append(roi)
+                    expected.append(hit)
+    starts, rois = starts.tolist(), rois.tolist()
+    assert len(starts) == len(expected) + 1 and starts[0] == 0
+    got = [rois[a:b] for a, b in zip(starts, starts[1:])]
+    assert got == expected
+    assert sum(map(len, got)) > 0
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    """The Pallas kernels in interpret mode, as the JAX package's tests run
+    them on the CPU."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+
+
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("name", sorted(BOXES))
+def test_ordered_reference_matches_the_pallas_backward_and_autograd(name, s, interpret_mode):
+    ext, strides, fa, shapes, boxes, bidx, g = _routing_case(name, s)
+    got = rap.ordered_backward_reference(torch.from_numpy(g), fa.roi_i, fa.roi_f, shapes,
+                                         s, 2)
+    assert all(a.dtype == torch.float32 and tuple(a.shape) == sh
+               for a, sh in zip(got, shapes))
+    leaves = [f.detach().requires_grad_() for f in ext]
+    twin = torch.autograd.grad(
+        rap._ref_ext(leaves, torch.from_numpy(boxes), torch.from_numpy(bidx), s, strides,
+                     2, 224.0, 4), leaves, torch.from_numpy(g))
+    for lvl, (a, b) in enumerate(zip(got, twin)):
+        _close(a, b.numpy(), f"{name} s={s} twin, extended level {lvl}")
+    levels = [jnp.asarray(f.numpy()) for f in ext[:4]]
+    ref = jax.grad(lambda f: (jrap.multilevel_roi_align_train(
+        f, jnp.asarray(boxes), jnp.asarray(bidx), s, STRIDES) * g).sum())(levels)
+    # the real levels' gradients: the kernel's, plus the virtual level's
+    # carried back through the 2x average pool by autograd on both sides
+    real = [f.detach().requires_grad_() for f in ext[:4]]
+    ext2, _ = rap._append_virtual_level(real, STRIDES)
+    full = torch.autograd.grad(ext2, real, got, allow_unused=True)
+    for lvl, (a, b) in enumerate(zip(full, ref)):
+        _close(a, b, f"{name} s={s} JAX train pooler, level {lvl}")
+    if name == "virtual":
+        assert float(got[4].abs().max()) > 0
+
+
+def test_ordered_reference_with_no_rois_gives_zeros():
+    ext, strides, fa, shapes, boxes, bidx, g = _routing_case("virtual", 7)
+    starts, rois = rap.backward_routing(fa.roi_i[:0], fa.roi_f[:0], shapes, 7, 2)
+    assert rois.numel() == 0 and int(starts.abs().max()) == 0
+    got = rap.ordered_backward_reference(torch.from_numpy(g[:0]), fa.roi_i[:0],
+                                         fa.roi_f[:0], shapes, 7, 2)
+    assert [tuple(t.shape) for t in got] == shapes
+    assert all(float(t.abs().max()) == 0 for t in got)
+
+
+def test_deterministic_mode_runs_the_twin_and_the_routing_bit_for_bit():
+    """Under torch's deterministic mode the train pooler's twin (forward and
+    backward, the CPU path) and the backward's routing run without raising,
+    and two runs give the same bits."""
     rng = np.random.RandomState(4)
-    feats = [torch.from_numpy(f).requires_grad_() for f in _levels(rng)]
-    boxes = torch.tensor([[4.0, 6.0, 60.0, 50.0], [10.0, 2.0, 150.0, 90.0]])
-    bidx = torch.tensor([0, 1], dtype=torch.int32)
-    rap.check_deterministic_backward()          # flag off: nothing happens
+    levels = _levels(rng)
+    boxes = torch.tensor(BOXES["budget_edge"] + BOXES["virtual"])
+    bidx = torch.tensor([0, 1, 1, 0, 1, 0, 1], dtype=torch.int32)
+    g = torch.from_numpy(rng.randn(len(boxes), 7, 7, C).astype(np.float32))
     before = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=warn_only)
+    torch.use_deterministic_algorithms(True)
     try:
-        if warn_only:
-            with pytest.warns(UserWarning, match="deterministic"):
-                rap.check_deterministic_backward()
-        else:
-            with pytest.raises(RuntimeError, match="roi_align_ml_backward_kernel"):
-                rap.check_deterministic_backward()
-        out = rap.multilevel_roi_align_train(feats, boxes, bidx, 7, STRIDES)
-        grads = torch.autograd.grad(out.sum(), feats)
+        runs = []
+        for _ in range(2):
+            feats = [torch.from_numpy(f).requires_grad_() for f in levels]
+            out = rap.multilevel_roi_align_train(feats, boxes, bidx, 7, STRIDES)
+            grads = torch.autograd.grad(out, feats, g)
+            ext, strides = rap._append_virtual_level([f.detach() for f in feats], STRIDES)
+            fa = rap._prepare_ext(ext, boxes, bidx, 7, 2, strides, 224.0, 4, torch.float32)
+            routing = rap.backward_routing(fa.roi_i, fa.roi_f, [tuple(f.shape) for f in ext],
+                                           7, 2)
+            runs.append((out.detach(), grads, routing))
     finally:
         torch.use_deterministic_algorithms(before)
-    assert all(torch.isfinite(g).all() for g in grads)
-    assert float(sum(g.abs().sum() for g in grads)) > 0
+    (o1, g1, r1), (o2, g2, r2) = runs
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    assert float(sum(t.abs().sum() for t in g1)) > 0

@@ -230,9 +230,13 @@ def test_launch_plan_helpers():
     assert rap.forward_shared_bytes(7, 24576) == 24576 + tables7
     assert rap.forward_shared_bytes(14) == rap.STAGE_BYTES + rap.table_bytes(14)
     assert rap.CHUNK == 64
-    assert rap.backward_shared_bytes(7) == 49 * 64 * 4 + tables7
+    assert rap.record_bytes(7) == tables7 and tables7 % 16 == 0
+    # stages of a ROI's cotangent tile and record: two where two fit in 64 KB
+    assert rap.backward_shared_bytes(7) == 2 * (49 * 64 * 4 + tables7)
     assert rap.backward_shared_bytes(14) == 196 * 64 * 4 + rap.table_bytes(14)
     assert rap.backward_shared_bytes(14) <= rap.MAX_SHARED_BYTES // 4   # 4 blocks an SM
+    assert rap.backward_shared_bytes(32) == 32 * 32 * 64 * 4 + rap.table_bytes(32)
+    assert rap.backward_slots() == 5 * 6   # tiles of 8 cells a 32 x 40 span can meet
     assert rap.forward_plan(7) == (128, 24576) and rap.forward_plan(14) == (256, 49152)
     for s in (7, 14):
         rap.check_launch_plan(s, 2, 256, rap.backward_shared_bytes(s))
@@ -240,7 +244,7 @@ def test_launch_plan_helpers():
     fields = {f.name for f in dataclasses.fields(rap.LaunchArgs)}
     assert fields == {"levels", "roi_i", "roi_f", "out", "s", "r"}
     fields = {f.name for f in dataclasses.fields(rap.BackwardArgs)}
-    assert fields == {"g", "roi_i", "roi_f", "grads", "s", "r"}
+    assert fields == {"g", "roi_i", "roi_f", "grads", "records", "keys", "s", "r"}
 
 
 @pytest.mark.parametrize("s", [1, 2, 7, 8, 9, 14, 28, 64])

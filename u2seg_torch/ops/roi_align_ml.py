@@ -27,13 +27,16 @@ for ``torch.utils.flop_counter``.
 ``multilevel_roi_align_train`` is the differentiable pooler of the train
 path (``multilevel_roi_align_train`` of the JAX package): f32 out, gradient
 w.r.t. the levels only. On CUDA tensors it is a ``torch.autograd.Function``
-whose forward is the kernel above and whose backward is the second kernel
-of the same source (the port of the TPU kernel ``_ml_bwd_kernel``), counted
-in ``multilevel_roi_align_backward.launches``; on CPU tensors it is the
+whose forward is the kernel above and whose backward is K3, the routing and
+gather kernels of the same source (the port of the TPU kernel
+``_ml_bwd_kernel``), counted once per call in
+``multilevel_roi_align_backward.launches``; on CPU tensors it is the
 twin under autograd, which is also the backward kernel's plain version. The
-backward kernel adds with atomics and is not deterministic: under
-``torch.use_deterministic_algorithms(True)`` it raises
-(``check_deterministic_backward``).
+backward kernel sums every gradient cell's ROIs in ascending ROI index, as
+the Pallas kernel adds ROI after ROI in grid order: two runs give the same
+bits, and it runs under ``torch.use_deterministic_algorithms(True)``.
+``ordered_backward_reference`` renders its algorithm in plain PyTorch (the
+tests hold it against the JAX package).
 
 The kernels' design (the source's header has the detail). For one ROI the
 pooled output is ``einsum(Wy, Wx, window)`` with the dense per-axis weights of
@@ -43,10 +46,13 @@ inside the ROI's window and inside the true level dims; the box of those cells
 is the ROI's *span* (``roi_spans``). One block serves one (ROI, chunk of
 ``CHUNK`` = 64 channels): the forward copies the rows of the span that a group
 of output rows needs into a buffer in shared memory (block size and buffer
-from ``forward_plan``) with 16-byte copies and interpolates from there; the
-backward
-keeps the ROI's cotangent tile in shared memory and makes one 16-byte vector
-atomic per (span cell, 4 channels). Both are bound by bytes on the card. That
+from ``forward_plan``) with 16-byte copies and interpolates from there. The
+backward is a gather: one block serves one (tile of ``BACKWARD_TILE`` x
+``BACKWARD_TILE`` cells of a gradient level and image, chunk of channels).
+A routing launch before it stores each ROI's tables and lists the ROIs that
+touch each tile (``backward_routing`` is its plain version), and the block
+adds them one after another into registers and writes each cell once (no
+zero fill, no atomics). Both are bound by bytes on the card. That
 is why C must be a multiple of 8 and all storage 16-byte aligned:
 ``_check_inputs`` and ``_prepare_ext`` raise otherwise. The single-level
 window kernel (``ops/roi_align_single.py``) is built on the same design and
@@ -59,7 +65,6 @@ import dataclasses
 import functools
 import itertools
 import math
-import warnings
 from typing import List, Sequence, Tuple
 
 import torch
@@ -98,10 +103,27 @@ def forward_shared_bytes(s: int, stage_bytes: int = STAGE_BYTES) -> int:
     return stage_bytes + table_bytes(s)
 
 
+BACKWARD_TILE = 8                 # cells per side of a backward tile (kTile)
+RING_BYTES = 64 * 1024            # the backward's ring of stages (kRingBytes)
+MAX_STAGES = 2
+
+
+def backward_slots() -> int:
+    """Routing keys per ROI: the most tiles a span can meet (slots_of)."""
+    return ((WIN_Y - 1) // BACKWARD_TILE + 2) * ((WIN - 1) // BACKWARD_TILE + 2)
+
+
+def record_bytes(s: int) -> int:
+    """One ROI's tables as the routing pass stores them, 16-byte rounded."""
+    return (table_bytes(s) + 15) // 16 * 16
+
+
 def backward_shared_bytes(s: int) -> int:
-    """Dynamic shared memory of one backward block: the ROI's f32 cotangent
-    tile (s, s, CHUNK) + tables."""
-    return s * s * CHUNK * 4 + table_bytes(s)
+    """Dynamic shared memory of one backward block: a ring of as many stages
+    as fit in ``RING_BYTES`` (1 to ``MAX_STAGES``), each a ROI's f32
+    cotangent (s, s, CHUNK) + its record."""
+    stage = s * s * CHUNK * 4 + record_bytes(s)
+    return stage * min(MAX_STAGES, max(1, RING_BYTES // stage))
 
 
 def forward_plan(s: int) -> Tuple[int, int]:
@@ -485,9 +507,16 @@ def _forward_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _route_fn():
+    return _c_fn("u2seg_roi_align_ml_backward_route",
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+
+
+@functools.lru_cache(maxsize=None)
 def _backward_fn():
     return _c_fn("u2seg_roi_align_ml_backward",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
@@ -495,6 +524,19 @@ def kernel_shared_bytes(backward: bool, s: int) -> int:
     """What the built library itself says one block takes (builds it)."""
     _, fn = _c_fn("u2seg_roi_align_ml_smem_bytes", [ctypes.c_int] * 5)
     return fn(int(backward), s, WIN_Y, WIN, forward_plan(s)[1])
+
+
+def kernel_backward_layout(s: int) -> Tuple[int, int, int]:
+    """What the built library says of the backward (builds it): the tile
+    side in cells, the routing keys per ROI and the bytes of a ROI's
+    record."""
+    lib = _cuda.load("roi_align_ml")
+    fn = lib.u2seg_roi_align_ml_backward_layout
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    fn(s, WIN_Y, WIN, ctypes.cast(out, ctypes.c_void_p))
+    return tuple(out)
 
 
 def _level_tables(levels):
@@ -534,64 +576,169 @@ multilevel_roi_align_kernel.launches = 0
 
 @dataclasses.dataclass
 class BackwardArgs:
-    """Everything one backward launch reads and writes."""
+    """Everything one backward call reads and writes."""
     g: torch.Tensor              # (R, s, s, C) f32 contiguous cotangent
     roi_i: torch.Tensor          # as LaunchArgs
     roi_f: torch.Tensor
     grads: List[torch.Tensor]    # f32 (B, H_l, W_l, C) per extended level
+    records: torch.Tensor        # (R, record_bytes(s)) uint8: the ROIs' tables
+    keys: torch.Tensor           # (R, backward_slots()) int64: routing keys
     s: int
     r: int
 
 
+def backward_tiles(shapes) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """Tile rows and columns per extended level, and each level's first tile
+    id (a last entry: the tile count). Tiles are numbered by level, then
+    image, then tile row and column, as the kernel decodes its block index."""
+    t = BACKWARD_TILE
+    tiles = [((h + t - 1) // t, (w + t - 1) // t) for _, h, w, _ in shapes]
+    firsts = [0, *itertools.accumulate(shapes[0][0] * ty * tx for ty, tx in tiles)]
+    return tiles, firsts
+
+
+def backward_routing(roi_i, roi_f, shapes, s, r):
+    """The plain version of the backward's routing (its first launch and the
+    sort after it), torch ops that run under
+    ``torch.use_deterministic_algorithms(True)``: ``tile_start`` (tiles + 1,)
+    int32 and ``tile_rois`` (P,) int32, where the ROIs of tile t are
+    ``tile_rois[tile_start[t]:tile_start[t + 1]]`` in ascending index: those
+    whose span, widened by one cell on each side, meets the tile on the ROI's
+    level and image. The kernel takes the span of its own tables; this one
+    takes ``roi_spans`` of torch's f32 weights, and the widening covers a
+    last-bit difference between the two (the kernel contracts
+    ``c0 + rel * bin`` into one FMA). A ROI listed for a tile that its exact
+    span misses adds nothing there.
+
+    Every ROI gets a fixed number of slots (the most tiles a window widened
+    by one cell can meet), so the sort has a size known without a sync;
+    unused slots sort last."""
+    dev = roi_i.device
+    n = roi_i.shape[0]
+    t = BACKWARD_TILE
+    tiles, firsts = backward_tiles(shapes)
+    n_tiles = firsts[-1]
+    if n == 0:
+        return (torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    lvl = roi_i[:, 0].long()
+    oy, ox, b = roi_i[:, 1].long(), roi_i[:, 2].long(), roi_i[:, 3].long()
+    h = device_table([sh[1] for sh in shapes], torch.int64, dev)[lvl]
+    w = device_table([sh[2] for sh in shapes], torch.int64, dev)[lvl]
+    wy = _pooled_axis_weights_host(roi_f[:, 0], roi_f[:, 2], oy, h.float(), s, r, WIN_Y)
+    wx = _pooled_axis_weights_host(roi_f[:, 1], roi_f[:, 3], ox, w.float(), s, r, WIN)
+    sp = roi_spans(wy, wx)
+    live = (sp[:, 0] <= sp[:, 1]) & (sp[:, 2] <= sp[:, 3])
+    y_lo = torch.clamp(sp[:, 0] + oy - 1, min=0) // t
+    y_hi = torch.minimum(sp[:, 1] + oy + 1, h - 1) // t
+    x_lo = torch.clamp(sp[:, 2] + ox - 1, min=0) // t
+    x_hi = torch.minimum(sp[:, 3] + ox + 1, w - 1) // t
+    ty = y_lo[:, None] + torch.arange((WIN_Y + 1) // t + 2, device=dev)
+    tx = x_lo[:, None] + torch.arange((WIN + 1) // t + 2, device=dev)
+    ok = (live[:, None, None] & (ty <= y_hi[:, None])[:, :, None]
+          & (tx <= x_hi[:, None])[:, None, :])
+    rows = device_table([v for v, _ in tiles], torch.int64, dev)[lvl]
+    cols = device_table([v for _, v in tiles], torch.int64, dev)[lvl]
+    first = device_table(firsts[:-1], torch.int64, dev)[lvl]
+    tile = (first[:, None, None] + ((b * rows)[:, None, None] + ty[:, :, None])
+            * cols[:, None, None] + tx[:, None, :])
+    roi = torch.arange(n, device=dev)[:, None, None]
+    keys = torch.where(ok, tile * n + roi, n_tiles * n).flatten()
+    keys = torch.sort(keys).values
+    starts = torch.searchsorted(keys, torch.arange(n_tiles + 1, device=dev) * n)
+    return starts.to(torch.int32), (keys % n).to(torch.int32)
+
+
+def ordered_backward_reference(g, roi_i, roi_f, shapes, s, r) -> List[torch.Tensor]:
+    """K3's algorithm in plain PyTorch, for the tests: the routing lists of
+    ``backward_routing``, then for every tile the ROIs of its list in order,
+    each adding its window cotangent ``Wy^T g Wx`` (the dense weights of
+    ``_pooled_axis_weights_host``) over the tile's cells. f32 gradients at the
+    true dims of the extended levels."""
+    starts, rois = backward_routing(roi_i, roi_f, shapes, s, r)
+    starts, rois = starts.tolist(), rois.tolist()
+    lvl = roi_i[:, 0].long()
+    h = device_table([sh[1] for sh in shapes], torch.float32, g.device)[lvl]
+    w = device_table([sh[2] for sh in shapes], torch.float32, g.device)[lvl]
+    wy = _pooled_axis_weights_host(roi_f[:, 0], roi_f[:, 2], roi_i[:, 1], h, s, r, WIN_Y)
+    wx = _pooled_axis_weights_host(roi_f[:, 1], roi_f[:, 3], roi_i[:, 2], w, s, r, WIN)
+    g = g.to(torch.float32)
+    gwin = torch.einsum("rpy,rpqc,rqx->ryxc", wy, g, wx)   # (R, WIN_Y, WIN, C)
+    grads = [torch.zeros(sh, dtype=torch.float32, device=g.device) for sh in shapes]
+    tiles, firsts = backward_tiles(shapes)
+    t = BACKWARD_TILE
+    origins = roi_i[:, 1:3].tolist()
+    for k in range(firsts[-1]):
+        level = max(i for i, f in enumerate(firsts[:-1]) if f <= k)
+        rows, cols = tiles[level]
+        b, rest = divmod(k - firsts[level], rows * cols)
+        y0, x0 = rest // cols * t, rest % cols * t
+        y1, x1 = min(y0 + t, shapes[level][1]), min(x0 + t, shapes[level][2])
+        acc = torch.zeros(y1 - y0, x1 - x0, g.shape[-1], device=g.device)
+        for roi in rois[starts[k]:starts[k + 1]]:
+            oy, ox = origins[roi]
+            # the tile's cells inside the ROI's window
+            ya, yb = max(y0, oy), min(y1, oy + WIN_Y)
+            xa, xb = max(x0, ox), min(x1, ox + WIN)
+            if ya < yb and xa < xb:
+                acc[ya - y0:yb - y0, xa - x0:xb - x0] += gwin[roi, ya - oy:yb - oy,
+                                                             xa - ox:xb - ox]
+        grads[level][b, y0:y1, x0:x1] = acc
+    return grads
+
+
 def prepare_backward(g, roi_i, roi_f, shapes, s, r) -> BackwardArgs:
-    """Allocate the f32 gradient levels at their true dims (the launch zeroes
-    them) and bring the cotangent to contiguous f32."""
+    """Bring the cotangent to contiguous f32 and allocate what the kernels
+    write: the f32 gradient levels at their true dims (every element is
+    written), the ROIs' records and their routing keys."""
     if g.device.type != "cuda" or g.shape != (roi_i.shape[0], s, s, shapes[0][3]):
         raise ValueError("cotangent must be a CUDA tensor of shape (R, s, s, C)")
     g = g.to(torch.float32).contiguous()
     grads = [torch.empty(sh, dtype=torch.float32, device=g.device)
              for sh in shapes]
-    check_aligned([g, *grads], "cotangent and gradient")
-    return BackwardArgs(g, roi_i, roi_f, grads, s, r)
+    n = roi_i.shape[0]
+    records = torch.empty((n, record_bytes(s)), dtype=torch.uint8, device=g.device)
+    keys = torch.empty((n, backward_slots()), dtype=torch.int64, device=g.device)
+    check_aligned([g, *grads, records, keys], "cotangent, gradient and routing")
+    return BackwardArgs(g, roi_i, roi_f, grads, records, keys, s, r)
 
 
 def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
-    """Launch the span backward kernel of ``csrc/roi_align_ml.cu`` on the
-    current stream: zero ``a.grads``, then add every ROI's span cotangent into
-    them. Counts the launch in ``multilevel_roi_align_backward.launches``."""
+    """K3 on the current stream: the routing launch (each ROI's record and
+    keys), a sort of the keys into per-tile lists (torch ops, deterministic),
+    then the gather launch: every cell of ``a.grads`` gets the sum of its
+    ROIs' cotangents in ascending ROI index. Counts one launch in
+    ``multilevel_roi_align_backward.launches``."""
     n_roi, _, _, c = a.g.shape
     check_launch_plan(a.s, a.r, c, backward_shared_bytes(a.s))
-    lib, fn = _backward_fn()
+    _, firsts = backward_tiles([tuple(t.shape) for t in a.grads])
+    n_tiles = firsts[-1]
     ptrs, hs, ws, _keep = _level_tables(a.grads)
-    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0],
-              a.roi_i.data_ptr(), a.roi_f.data_ptr(), a.g.data_ptr(), n_roi, c,
-              a.s, a.r, WIN_Y, WIN,
-              torch.cuda.current_stream(a.g.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.g.device).cuda_stream
+    dev = a.g.device
+    if n_roi:
+        lib, route = _route_fn()
+        code = route(hs, ws, len(a.grads), a.grads[0].shape[0], a.roi_i.data_ptr(),
+                     a.roi_f.data_ptr(), n_roi, a.s, a.r, WIN_Y, WIN, n_tiles,
+                     a.records.data_ptr(), a.keys.data_ptr(), stream)
+        _cuda.check(lib, code, "roi_align_ml backward routing launch")
+        keys = torch.sort(a.keys.flatten()).values
+        tile_start = torch.searchsorted(
+            keys, torch.arange(n_tiles + 1, device=dev) * n_roi).to(torch.int32)
+        tile_rois = (keys % n_roi).to(torch.int32)
+    else:
+        tile_start = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+        tile_rois = tile_start[:0]
+    lib, fn = _backward_fn()
+    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0], a.roi_i.data_ptr(),
+              a.records.data_ptr(), a.g.data_ptr(), tile_start.data_ptr(),
+              tile_rois.data_ptr(), n_tiles, n_roi, c, a.s, WIN_Y, WIN, stream)
     _cuda.check(lib, code, "roi_align_ml backward launch")
     multilevel_roi_align_backward.launches += 1
     return a.grads
 
 
 multilevel_roi_align_backward.launches = 0
-
-
-def check_deterministic_backward() -> None:
-    """K3 adds each ROI's cotangent into the level gradients with atomics,
-    whose order changes from run to run, so its gradients may differ in the
-    last bits between two runs on the same inputs (the Pallas backward adds
-    ROI after ROI in grid order and repeats exactly). Under
-    ``torch.use_deterministic_algorithms(True)`` raise, as torch's own
-    non-deterministic CUDA ops do; with ``warn_only=True`` warn."""
-    if not torch.are_deterministic_algorithms_enabled():
-        return
-    msg = ("multilevel_roi_align_train's CUDA backward (roi_align_ml_backward_kernel) "
-           "does not have a deterministic implementation, but you set "
-           "'torch.use_deterministic_algorithms(True)'. You can turn off determinism "
-           "just for this operation, or use the 'warn_only=True' option.")
-    if torch.is_deterministic_algorithms_warn_only_enabled():
-        warnings.warn(msg)
-    else:
-        raise RuntimeError(msg)
 
 
 class _TrainPooler(torch.autograd.Function):
@@ -611,7 +758,6 @@ class _TrainPooler(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        check_deterministic_backward()
         roi_i, roi_f = ctx.saved_tensors
         s, r, shapes, dtype = ctx.meta
         grads = multilevel_roi_align_backward(
