@@ -62,9 +62,14 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    path reaches this kernel (in the JAX package neither): its "path" is two
    calls of the public wrapper at these shapes, counted apart from the
    comparison launches;
-9. k5: the two window-read probe kernels against their plain version at
-   N=512 windows per shape, then ``profile_window_read.time_shapes`` (the
-   probe's own path: five window shapes, N=8000) in ms and GB/s;
+9. k5: the two window-read probe kernels (one pass down the map) against
+   their plain version per window shape: N=512 random windows, edge and
+   clamped origins, 4096 windows on one (image, origin row), and a window
+   too tall for the whole width's ring (column bands); two calls and a call
+   under the deterministic flag bit-equal, and the algorithm's plain
+   statement beside them; then ``profile_window_read.time_shapes`` (the
+   probe's own path: five window shapes, N=8000): device ms of a whole call,
+   the routing's, the call launched alone, the bound and its share;
 10. eval: ``DefaultPredictor`` at full width: 8 numpy-drawn uint8 scenes
    (480x640, 427x640, 640x480, 500x375, twice) through
    ``run_batched(batch_size=4)`` with the host render, with
@@ -1963,25 +1968,52 @@ def phase_k5(dev):
     from u2seg_torch.dev import profile_window_read as probe
 
     feat = probe.make_map(0, dev)
-    bsz, h, w, c = feat.shape
     rng = np.random.RandomState(6)
     errs = {"3d": 0.0, "flat": 0.0}
-    for name, mode, wy, wx in probe.SHAPES:
-        oy, ox, b = probe.make_origins(rng, 512, feat.shape, wy, wx, mode, dev)
-        if mode == "3d":
-            ox = ox + 5              # the kernel aligns the origin down itself
-        got = probe.window_sum(feat, oy, ox, b, wy, wx, mode)
-        ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+    # the JAX probe's shapes, and a window whose ring is too tall for the
+    # whole width: column bands with a halo
+    shapes = [*probe.SHAPES, ("3d  40x128 (banded)", "3d", 128, 40)]
+    for name, mode, wy, wx in shapes:
+        cases = probe.check_cases(rng, feat.shape, wy, wx, mode, dev)
+        for case, (oy, ox, b) in cases.items():
+            got, row_start, order = probe.launch(feat, oy, ox, b, wy, wx, mode)
+            ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+            lists = probe.window_routing(oy, b, feat.shape[0], feat.shape[1], wy)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            ok = (got.shape == ref.shape == (oy.shape[0] // probe.GROUP, 8, 128)
+                  and bool(torch.isclose(got, ref, rtol=1e-5, atol=1e-3).all())
+                  and torch.equal(row_start, lists[0]) and torch.equal(order, lists[1]))
+            errs[mode] = max(errs[mode], err)
+            log(f"[k5] {name} {case}: N={oy.shape[0]}, max|kernel-plain|={err:.3e} at "
+                f"max|plain| {float(ref.abs().max()):.1f} (tol rtol 1e-5 + atol 1e-3: f32 "
+                f"sums in another order); routing lists == window_routing's "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K5 {mode} disagrees with its plain version "
+                                     f"({name}, {case})")
+        # the same bits from two calls, from a call under torch's deterministic
+        # mode (which fills the partial table with NaN first: an element the
+        # kernel did not write would show) and from the algorithm's plain
+        # statement, which makes the same f32 adds in the same order
+        oy, ox, b = cases["edge"]
+        runs = [probe.window_sum(feat, oy, ox, b, wy, wx, mode) for _ in range(2)]
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs.append(probe.window_sum(feat, oy, ox, b, wy, wx, mode))
+        finally:
+            torch.use_deterministic_algorithms(before)
+        strips = probe.window_sum_strips_reference(feat, oy, ox, b, wy, wx, mode)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        ok = (got.shape == (64, 8, 128)
-              and bool(torch.isclose(got, ref, rtol=1e-5, atol=1e-3).all()))
-        errs[mode] = max(errs[mode], err)
-        log(f"[k5] {name}: N=512, all 64 rows max|kernel-plain|={err:.3e} at max|plain| "
-            f"{float(ref.abs().max()):.1f} (tol rtol 1e-5 + atol 1e-3: f32 sums in "
-            f"another order) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K5 {mode} disagrees with its plain version ({name})")
+        same = [torch.equal(runs[0], r) for r in runs[1:]]
+        exact = float((runs[0] - strips).abs().max())
+        log(f"[k5] {name}: two calls bit-equal {same[0]}, under the deterministic flag "
+            f"bit-equal {same[1]}; max|kernel - strips reference| {exact:.3e} "
+            f"(the same adds in the same order: must be 0)")
+        if not all(same) or exact != 0:
+            raise AssertionError(f"K5 {mode} gave other bits on a second call or than "
+                                 f"the strips reference ({name})")
     probe.window_sum.launches = {"3d": 0, "flat": 0}      # the probe's path starts
     rows = probe.time_shapes(feat)
     launches = dict(probe.window_sum.launches)            # the probe's path ends
@@ -1989,24 +2021,15 @@ def phase_k5(dev):
     for row in rows:
         oy, ox, b = probe.make_origins(rng, probe.NUM_WINDOWS, feat.shape,
                                        row["wy"], row["wx"], row["mode"], dev)
-        cells = ((b.long()[:, None, None] * h + oy.long()[:, None, None]
-                  + torch.arange(row["wy"], device=dev)[None, :, None]) * w
-                 + ox.long()[:, None, None]
-                 + torch.arange(row["wx"], device=dev)[None, None, :])
-        seen = torch.zeros(bsz * h * w, dtype=torch.bool, device=dev)
-        seen[cells.reshape(-1)] = True
-        n_out = probe.NUM_WINDOWS // probe.GROUP * probe.SLOTS * 4
-        nbytes = int(seen.sum()) * c * 2 + n_out + probe.NUM_WINDOWS * 12
-        flops = probe.NUM_WINDOWS * row["wy"] * row["wx"] * c
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
         row["plain_ms"] = cuda_ms(lambda: probe.window_sum_ref(
             feat, oy, ox, b, row["wy"], row["wx"], row["mode"]), iters=1, warmup=1)
-        row.update(distinct_bytes=nbytes, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"[k5] {row['name']:24s} N={probe.NUM_WINDOWS}: {row['ms']:.4f} ms, "
-            f"{row['gb_per_s']:.1f} GB/s of window bytes ({row['bytes'] / 1e9:.2f} GB; "
-            f"{nbytes / 1e6:.1f} MB distinct -> bound {row['bound_ms']:.4f} ms by "
-            f"{row['bound_by']}), plain {row['plain_ms']:.2f} ms")
+        log(f"[k5] {row['name']:24s} N={probe.NUM_WINDOWS}: {row['ms']:.4f} ms device "
+            f"time of a whole call (routing, strips and groups launches; 20 calls in one "
+            f"CUDA graph), launched call by call {row['call_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({row['distinct_bytes'] / 1e6:.1f}"
+            f" MB distinct) -> {row['share']:.3f} of the bound; "
+            f"{row['gb_per_s']:.1f} GB/s effective ({row['bytes'] / 1e9:.2f} GB of window "
+            f"bytes); plain {row['plain_ms']:.2f} ms")
     log(f"[k5] probe path launches: {launches}; 0 per forward and 0 per train step "
         f"(a dev probe); library call: none")
     if min(launches.values()) < 1:

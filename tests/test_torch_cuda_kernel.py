@@ -4,8 +4,10 @@ channel width for each dtype pair, levels smaller than the window, what
 they reject), the single-level window ROIAlign (the same span design: main
 shapes, a ragged width, bins taller than its stage buffer, no ROIs, what it
 rejects), the shared memory each library reports, the two window-read
-probe kernels, and the backward kernel's bits: equal over two runs, and
-equal again under torch's deterministic mode.
+probe kernels (random, edge, clamped and shared-row origins, a banded ring,
+what they reject), and the bits of the backward kernel and of the probe
+kernels: equal over two runs, and equal again under torch's deterministic
+mode.
 
 These tests need a CUDA device: they carry the ``cuda`` marker and skip
 where there is none (a CUDA kernel has no CPU mode). This file imports no
@@ -21,8 +23,10 @@ ones (one rounding of an f32 sum) at rtol 0.05 / atol 0.03 * max(1, max|plain
 grad|) / 8, and two of its runs to each other bit for bit. The
 single-level kernel accumulates and writes f32 for every input type: 1e-4 *
 max(1, max|plain|) for f32 and for bf16 maps alike. The probe kernels sum
-bf16 values in f32 in another order than the plain version: rtol 1e-5, atol
-1e-3 on sums of thousands of values.
+bf16 values in f32 in another order than the plain version (running strip
+sums, then folds): rtol 1e-5, atol 1e-3 on sums of thousands of values; and
+bit for bit against ``window_sum_strips_reference``, which adds in their
+order.
 """
 import numpy as np
 import pytest
@@ -355,23 +359,50 @@ def test_single_level_kernel_with_no_rois(dev):
 # the window-read probe
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode,wy,wx", [
-    ("3d", 32, 40), ("flat", 32, 40), ("flat", 32, 32), ("flat", 16, 16),
-    ("3d", 16, 24)])
-def test_probe_kernels_match_plain_version(dev, mode, wy, wx):
-    shape = (3, 64, 96, 256)
+PROBE_MAP = (3, 64, 96, 256)
+# the JAX probe's shapes, and a ring too tall for the whole width of a wider
+# map: two column bands with a halo
+PROBE_SHAPES = [("3d", 32, 40, PROBE_MAP), ("flat", 32, 40, PROBE_MAP),
+                ("flat", 32, 32, PROBE_MAP), ("flat", 16, 16, PROBE_MAP),
+                ("3d", 16, 24, PROBE_MAP), ("3d", 56, 40, (2, 64, 400, 256))]
+
+
+@pytest.mark.parametrize("mode,wy,wx,shape", PROBE_SHAPES)
+def test_probe_kernels_match_plain_version(dev, mode, wy, wx, shape):
     feat = probe.make_map(0, dev, shape)
-    oy, ox, b = probe.make_origins(np.random.RandomState(1), 64, shape, wy, wx,
-                                   mode, dev)
-    if mode == "3d":
-        ox = ox + 3          # the kernel aligns down itself
-    before = probe.window_sum.launches[mode]
-    got = probe.window_sum(feat, oy, ox, b, wy, wx, mode)
-    assert probe.window_sum.launches[mode] == before + 1
-    ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+    cases = probe.check_cases(np.random.RandomState(1), shape, wy, wx, mode, dev)
+    for name, (oy, ox, b) in cases.items():
+        before = probe.window_sum.launches[mode]
+        got, row_start, order = probe.launch(feat, oy, ox, b, wy, wx, mode)
+        assert probe.window_sum.launches[mode] == before + 1
+        ref = probe.window_sum_ref(feat, oy, ox, b, wy, wx, mode)
+        lists = probe.window_routing(oy, b, shape[0], shape[1], wy)
+        torch.cuda.synchronize()
+        assert torch.equal(row_start, lists[0]) and torch.equal(order, lists[1]), name
+        assert got.shape == ref.shape == (oy.shape[0] // probe.GROUP, 8, 128), name
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("mode,wy,wx,shape", PROBE_SHAPES)
+def test_probe_kernels_repeat_bit_for_bit(dev, mode, wy, wx, shape):
+    """Fixed sum orders: two calls give the same bits, so does a call under
+    torch's deterministic mode (which fills the partial table with NaN
+    first), and so does the algorithm's plain statement, which makes the
+    same f32 adds in the same order."""
+    feat = probe.make_map(0, dev, shape)
+    oy, ox, b = probe.check_cases(np.random.RandomState(2), shape, wy, wx, mode,
+                                  dev)["edge"]
+    runs = [probe.window_sum(feat, oy, ox, b, wy, wx, mode) for _ in range(2)]
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs.append(probe.window_sum(feat, oy, ox, b, wy, wx, mode))
+    finally:
+        torch.use_deterministic_algorithms(before)
+    runs.append(probe.window_sum_strips_reference(feat, oy, ox, b, wy, wx, mode))
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (8, 8, 128)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-3)
+    for other in runs[1:]:
+        assert torch.equal(runs[0], other)
 
 
 def test_probe_kernels_raise_on_what_they_do_not_take(dev):
@@ -387,3 +418,8 @@ def test_probe_kernels_raise_on_what_they_do_not_take(dev):
         probe.window_sum(feat, oy[:5], ox[:5], b[:5], 16, 16, "3d")
     with pytest.raises(ValueError):         # window larger than the map
         probe.window_sum(feat, oy, ox, b, 80, 16, "3d")
+    with pytest.raises(ValueError):         # wx*C = 1536: slots depend on the row
+        probe.window_sum(feat, oy, ox, b, 16, 6, "flat")
+    before = dict(probe.window_sum.launches)
+    out = probe.window_sum(feat, oy[:0], ox[:0], b[:0], 16, 16, "flat")
+    assert out.shape == (0, 8, 128) and probe.window_sum.launches == before
