@@ -22,11 +22,15 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    shapes (b=2 at 800x1344; R=1024 at s=7, R=256 at s=14; f32 and bf16
    levels, f32 cotangent), the budget-edge boxes and R=0 included, at C=72,
    on boxes far over the budget and on the tiny config's levels (16x16 ..
-   2x2, smaller than a span); its device time the same way (a call is the
-   routing launch, the sort of its keys and the gather launch, which writes
-   183 MB of gradient levels, more than L2 holds); two runs on
-   the same inputs must give the same bits (max|run1 - run2| == 0, no element
-   differs) in f32 and bf16, and so must a run under
+   2x2, smaller than a span), and on a pile of 200 large ROIs over one
+   region whose p5 and virtual-level tile lists run longer than 4 segments;
+   its device time the same way (a call is six launches: routing, count,
+   plan, fill, gather, which writes 183 MB of gradient levels, more than L2
+   holds, and fold), each launch's alone, the tile lists' lengths per level,
+   the work items, cut tiles and scratch MB; the plan launch must equal
+   ``segment_plan`` of the kernel's lists; two runs on the same inputs must
+   give the same bits (max|run1 - run2| == 0, no element differs) in f32 and
+   bf16, also on the pile, and so must a run under
    ``torch.use_deterministic_algorithms(True)``;
 4. serve: the default Config() at full width (R50-FPN, 3-stage cascade over
    800 classes, masks, 28 sem-seg classes, bf16) with seeded weights serves 4
@@ -42,7 +46,8 @@ with no ``--phases`` all of them run, which is what the last line vouches for):
    finite losses with the 10 expected keys, finite non-zero gradients on the
    backbone, the RPN, each cascade stage, the mask and sem-seg heads, 4
    forward + 4 backward kernel launches per step, parameters changed; step
-   time, peak memory, and torch.profiler's busy share and launches per step;
+   time, peak memory, and torch.profiler's busy share and launches per step,
+   K3's device ms per step; before them, the tile lists of one step's pools;
 7. train_cpu: one train step of the tiny config in f32 (TF32 off) on the card
    (kernels) against the CPU (plain versions), with sampling sizes that take
    every candidate so that no random draw matters: losses, gradients and the
@@ -328,6 +333,7 @@ sys.path.insert(0, HERE)
 
 # device ms from a CUDA graph; the card's name and power limit
 from u2seg_torch.dev.sweep_forward_plan import graph_ms, smi_line  # noqa: E402
+from u2seg_torch.dev.time_roi_align_backward import pile_boxes  # noqa: E402
 from u2seg_torch.testing import scene  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 flop/s
@@ -747,7 +753,8 @@ def phase_kernel_backward(dev):
         rec["ms"] = graph_ms([lambda: rap.multilevel_roi_align_backward(ba)], iters=10)
         rec["wrapper_ms"] = cuda_ms(lambda: rap.multilevel_roi_align_backward(ba), iters=20)
         n_tiles = rap.backward_tiles(shapes)[1][-1]
-        pairs = int((ba.keys < n_tiles * n).sum())
+        rec["steps"], rec["plan"] = k3_breakdown(rap, ba)
+        pairs = rec["plan"]["pairs"]
         rec["fwd_ms"] = cuda_ms(lambda: rap.launch(fa), iters=20)
         feats_p = [f.requires_grad_() for f in feats]
         out_p = rap.multilevel_roi_align_ref(feats_p, boxes, bidx, s, strides)
@@ -760,14 +767,15 @@ def phase_kernel_backward(dev):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
         rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   chunk=rap.CHUNK, threads=256, shared_bytes=shared,
+                   chunk=rap.CHUNK, threads=288, shared_bytes=shared,
                    tile=rap.BACKWARD_TILE, tiles=n_tiles, pairs=pairs,
                    spans=span_stats(rap, feats, boxes, s, strides))
         log(f"[k3] s={s} R={n} timing (bf16 levels, f32 cotangent; the gather writes "
             f"{sum(t.numel() for t in ba.grads) * 4 / 1e6:.0f} MB of gradient levels, no "
-            f"zero fill before it; device time of 10 calls in one CUDA graph, each the "
-            f"routing launch, the sort of its keys and the gather launch): "
-            f"{rec['ms']:.4f} ms (chunk {rap.CHUNK}, 256 threads, {shared} B shared, "
+            f"zero fill before it; device time of 10 calls in one CUDA graph, each its six "
+            f"launches: routing, count, plan, fill, gather, fold): "
+            f"{rec['ms']:.4f} ms (chunk {rap.CHUNK}, a persistent gather of 256 adding "
+            f"threads + a copying warp, {shared} B shared, "
             f"{n_tiles} tiles of {rap.BACKWARD_TILE}x{rap.BACKWARD_TILE} cells x "
             f"{-(-c // rap.CHUNK)} chunks, {pairs} (tile, ROI) pairs: "
             f"{pairs / max(n, 1):.2f} tiles per ROI); the wrapper launched call by call "
@@ -780,11 +788,130 @@ def phase_kernel_backward(dev):
             f"forward kernel at these shapes (f32 out) "
             f"{rec['fwd_ms']:.4f} ms; library call: none (no single PyTorch op "
             f"computes the window transpose and its scatter)")
+        rec["lists"] = k3_lists(rap, ba.tile_count, shapes)
+        st, pl = rec["steps"], rec["plan"]
+        log(f"[k3] s={s} R={n} launches alone (device ms, 10 in one CUDA graph): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+            + f"; routing {st['route']:.4f}, counting sort {st['count'] + st['plan'] + st['fill']:.4f}"
+            f" (count + plan + fill), segments {st['gather']:.4f}, fold {st['fold']:.4f} of "
+            f"the whole call {rec['ms']:.4f}; {pl['items']} work items ({pl['segmented']} with "
+            f"ROIs) of at most {rap.SEGMENT} ROIs, {pl['cut_tiles']} tiles cut into segments, "
+            f"{pl['partial_slots']} partial slots = {pl['scratch_mb']:.2f} MB of scratch written "
+            f"and read again ({pl['scratch_alloc_mb']:.1f} MB allocated: the bound); "
+            f"tile lists: {lists_line(rec['lists'])}")
         rec["repeat"] = k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides)
         results[s] = rec
+    results["pile"] = k3_pile_check(rap, base, gen, rng)
     results["narrow"] = narrow_backward_check(rap, dev)
     results["tiny"] = tiny_pyramid_check(rap, dev, "k3")
     return results
+
+
+LEVEL_NAMES = ("p2", "p3", "p4", "p5", "virtual")
+
+
+def k3_lists(rap, tile_count, shapes):
+    """Per level, the lengths of K3's tile lists (the kernel's own counts):
+    the tiles, those met by a ROI, the longest list, the median and 99th
+    percentile over the met tiles, and the (tile, ROI) pairs."""
+    firsts = rap.backward_tiles(shapes)[1]
+    rows = []
+    for lvl in range(len(shapes)):
+        c = tile_count[firsts[lvl]:firsts[lvl + 1]].long()
+        met = c[c > 0].float()
+        rows.append(dict(level=LEVEL_NAMES[lvl], tiles=int(c.numel()), met=int(met.numel()),
+                         max=int(c.max()) if c.numel() else 0,
+                         median=float(met.median()) if met.numel() else 0.0,
+                         p99=float(torch.quantile(met, 0.99)) if met.numel() else 0.0,
+                         pairs=int(c.sum())))
+    return rows
+
+
+def lists_line(rows) -> str:
+    return "; ".join(f"{r['level']} {r['met']}/{r['tiles']} tiles met, max {r['max']}, "
+                     f"median {r['median']:g}, p99 {r['p99']:.1f}, {r['pairs']} pairs"
+                     for r in rows)
+
+
+def k3_counts(rap, g, roi_i, roi_f, shapes, s):
+    """The kernel's tile counts for these ROIs: its routing and count
+    launches alone."""
+    ba = rap.prepare_backward(g, roi_i, roi_f, shapes, s, 2)
+    for name, step in rap.backward_steps(ba):
+        if name in ("route", "count"):
+            step()
+    return ba.tile_count
+
+
+def k3_breakdown(rap, ba):
+    """Device ms of each launch of one K3 call, each alone in a CUDA graph
+    of 10 after one whole call (the fold, repeated, adds its partials
+    again: its values are not read), and the plan's figures: work items,
+    tiles cut into segments, partial slots used and allocated (MB)."""
+    steps = rap.backward_steps(ba)
+    for _, step in steps:
+        step()
+    torch.cuda.synchronize()
+    n_items, n_folds, _ = ba.counts.tolist()
+    used = int(ba.folds[:n_folds, 2].sum()) if n_folds else 0
+    cell_bytes = rap.BACKWARD_TILE ** 2 * ba.g.shape[-1] * 4
+    plan = dict(items=n_items, segmented=int((ba.items[:n_items, 2] > 0).sum()),
+                cut_tiles=n_folds, partial_slots=used, scratch_mb=used * cell_bytes / 1e6,
+                scratch_alloc_mb=ba.partials.numel() * 4 / 1e6,
+                pairs=int(ba.tile_start[-1]))
+    mine = rap.segment_plan(ba.tile_start.cpu())
+    if not (torch.equal(ba.items[:n_items].long().cpu(), mine.items)
+            and torch.equal(ba.folds[:n_folds, :3].long().cpu(), mine.folds)):
+        raise AssertionError("K3's plan launch disagrees with segment_plan of its lists")
+    ms = {name: graph_ms([step], iters=10) for name, step in steps}
+    return ms, plan
+
+
+def k3_pile_check(rap, base, gen, rng):
+    """K3 on the pile at the train step's shapes: against autograd of the
+    twin (f32), its lists longer than 4 segments on p5 and the virtual level,
+    and bit for bit over runs (``k3_repeatability``)."""
+    strides = (4, 8, 16, 32)
+    boxes = pile_boxes(rng).to(base[0].device)
+    bidx = torch.zeros(len(boxes), dtype=torch.int32, device=boxes.device)
+    out = {}
+    for s in (7, 14):
+        g = torch.randn(len(boxes), s, s, base[0].shape[-1], generator=gen, device=boxes.device)
+        fk = [f.clone().requires_grad_() for f in base]
+        fp = [f.clone().requires_grad_() for f in base]
+        got = torch.autograd.grad(rap.multilevel_roi_align_train(fk, boxes, bidx, s, strides),
+                                  fk, g)
+        ref = torch.autograd.grad(rap.multilevel_roi_align_ref(fp, boxes, bidx, s, strides),
+                                  fp, g)
+        ext, st_ext = rap._append_virtual_level(base, strides)
+        fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
+        shapes = [tuple(f.shape) for f in ext]
+        lists = k3_lists(rap, k3_counts(rap, g, fa.roi_i, fa.roi_f, shapes, s), shapes)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        scale = max(1.0, max(float(b.abs().max()) for b in ref))
+        longest = min(lists[3]["max"], lists[4]["max"])
+        ok = err <= F32_TOL * scale and longest > 4 * rap.SEGMENT
+        log(f"[k3] pile of {len(boxes)} large ROIs over one region, s={s}, f32: "
+            f"max|kernel-plain| {err:.3e} (max|plain grad| {scale:.2f}); tile lists: "
+            f"{lists_line(lists)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 on the pile: error {err:.3e}, longest lists {longest}")
+        ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)
+        got = rap.multilevel_roi_align_backward(ba)
+        own = (ba.tile_start, ba.lists[:int(ba.tile_start[-1])] >> rap.PAIR_BITS)
+        ref = rap.ordered_backward_reference(g, fa.roi_i, fa.roi_f, shapes, s, 2, routing=own)
+        same = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got, ref))
+        log(f"[k3] pile s={s}: K3 against ordered_backward_reference on K3's own lists (the "
+            f"same association of ROI terms, each term computed its own way): max|diff| / "
+            f"max|grad| {same:.2e} per level at most (tol 1e-5) {'ok' if same <= 1e-5 else 'FAIL'}")
+        if same > 1e-5:
+            raise AssertionError(f"K3 departs from its ordered reference: {same:.2e}")
+        feats = [f.to(torch.bfloat16) for f in base]
+        out[s] = dict(max_abs_err=err, lists=lists, reference_rel=same,
+                      repeat=k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides))
+    return out
 
 
 def k3_repeatability(rap, ba, feats, boxes, bidx, g, s, strides):
@@ -1094,6 +1221,11 @@ def phase_train(dev, steps: int = 4, warmup: int = 2):
         step(batch, gen)
     torch.cuda.synchronize()
 
+    pools = train_pools(model, step, batch, gen)
+    for p in pools:
+        log(f"[train] K3 tile lists of the step's s={p['s']} pool (R={p['R']}): "
+            + lists_line(p["lists"]))
+
     rap.multilevel_roi_align_kernel.launches = 0          # the main path starts
     rap.multilevel_roi_align_backward.launches = 0
     rows = []
@@ -1155,9 +1287,46 @@ def phase_train(dev, steps: int = 4, warmup: int = 2):
     ours = {e.key: e.self_device_time_total / 1e3 / 2 for e in kernels
             if "roi_align_ml" in e.key}
     log(f"[train] the port's kernels in that profile (ms/step): {ours}")
-    return dict(steps=rows, forward_launches=fwd, backward_launches=bwd,
-                profile=dict(wall_ms=wall_ms, device_ms=dev_ms,
-                             launches_per_step=n_launch, top=top, ours=ours))
+    k3_ms = sum(v for k, v in ours.items() if "backward" in k)
+    sort_ms = sum(e.self_device_time_total for e in kernels
+                  if "RadixSort" in e.key) / 1e3 / 2
+    log(f"[train] K3 per step: its kernels {k3_ms:.4f} ms/step over "
+        f"{bwd // steps} calls; every radix-sort kernel of the step (K3's key sorts "
+        f"among them) {sort_ms:.4f} ms/step")
+    return dict(steps=rows, forward_launches=fwd, backward_launches=bwd, pools=pools,
+                profile=dict(wall_ms=wall_ms, device_ms=dev_ms, k3_ms=k3_ms,
+                             sort_ms=sort_ms, launches_per_step=n_launch, top=top,
+                             ours=ours))
+
+
+def train_pools(model, step, batch, gen):
+    """One train step with the pooler's inputs recorded: per pool of the
+    step its output size, ROI count and the tile lists of its backward."""
+    from u2seg_torch.models import roi_heads
+    from u2seg_torch.ops import roi_align_ml as rap
+
+    seen = []
+    orig = roi_heads.multilevel_roi_align_train
+
+    def recording(features, boxes, batch_idx, output_size, strides, **kw):
+        seen.append((boxes.detach().clone(), batch_idx.clone(), output_size, strides,
+                     [f.detach() for f in features]))
+        return orig(features, boxes, batch_idx, output_size, strides, **kw)
+
+    roi_heads.multilevel_roi_align_train = recording
+    try:
+        step(batch, gen)
+    finally:
+        roi_heads.multilevel_roi_align_train = orig
+    pools = []
+    for boxes, bidx, s, strides, feats in seen:
+        ext, st_ext = rap._append_virtual_level(feats, strides)
+        fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
+        shapes = [tuple(f.shape) for f in ext]
+        g = torch.zeros(boxes.shape[0], s, s, shapes[0][3], device=boxes.device)
+        pools.append(dict(s=s, R=int(boxes.shape[0]), lists=k3_lists(
+            rap, k3_counts(rap, g, fa.roi_i, fa.roi_f, shapes, s), shapes)))
+    return pools
 
 
 DET_STEPS = 3

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from u2seg_torch.dev import profile_window_read as probe
+from u2seg_torch.dev.time_roi_align_backward import pile_boxes
 from u2seg_torch.ops import roi_align_ml as rap
 from u2seg_torch.ops import roi_align_single as ras
 
@@ -103,13 +104,12 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         rap.multilevel_roi_align_kernel(off, boxes, bidx, 7, STRIDES)
     with pytest.raises(ValueError, match="16-byte aligned"):
         rap.multilevel_roi_align_train(off, boxes, bidx, 7, STRIDES)
-    # an output size whose cotangent tile exceeds a block's shared memory
+    # a cotangent that is not (R, s, s, C)
     ext, st_ext = rap._append_virtual_level(feats, STRIDES)
-    args = rap._prepare_ext(ext, boxes, bidx, 32, 2, st_ext, 224.0, 4, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
-        rap.multilevel_roi_align_backward(rap.prepare_backward(
-            torch.zeros(boxes.shape[0], 32, 32, 64, device=dev), args.roi_i, args.roi_f,
-            [tuple(f.shape) for f in args.levels], 32, 2))
+    args = rap._prepare_ext(ext, boxes, bidx, 14, 2, st_ext, 224.0, 4, torch.float32)
+    with pytest.raises(ValueError, match="cotangent"):
+        rap.prepare_backward(torch.zeros(boxes.shape[0], 7, 7, 64, device=dev), args.roi_i,
+                             args.roi_f, [tuple(f.shape) for f in args.levels], 14, 2)
 
 
 @pytest.mark.parametrize("din,dout", [
@@ -177,9 +177,9 @@ def test_libraries_and_wrappers_agree_on_shared_memory(dev):
             s, rap.forward_plan(s)[1])
     for s in (1, 7, 14, 32):
         assert ras.kernel_shared_bytes(s) == ras.shared_bytes(s, ras.launch_plan(s)[1])
-    for s in (7, 14):
-        assert rap.kernel_backward_layout(s) == (rap.BACKWARD_TILE, rap.backward_slots(),
-                                                 rap.record_bytes(s))
+    for s in (7, 14, 32):
+        assert rap.kernel_shared_bytes(True, s) == rap.backward_shared_bytes(s)
+        assert rap.kernel_backward_layout(s) == rap.backward_layout(s)
 
 
 @pytest.mark.parametrize("s", [7, 14])
@@ -254,6 +254,137 @@ def test_backward_kernel_repeats_bit_for_bit_also_in_deterministic_mode(dev):
     for a, b, c in zip(*runs):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert float(sum(t.float().abs().sum() for t in runs[0])) > 0
+
+
+def _pile(dev, s, dtype=torch.float32, n=200):
+    """``pile_boxes``: ~200 large ROIs over one region of image 0 (b=2 at
+    800x1344, C=64), whose p5 and virtual-level tile lists run past 4
+    segments."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    feats = [torch.randn(2, 800 // st, 1344 // st, 64, generator=gen, device=dev).to(dtype)
+             for st in STRIDES]
+    boxes = pile_boxes(np.random.RandomState(6), n).to(dev)
+    bidx = torch.zeros(n, dtype=torch.int32, device=dev)
+    g = torch.randn(n, s, s, 64, generator=gen, device=dev)
+    return feats, boxes, bidx, g
+
+
+def _pile_args(dev, s, dtype=torch.float32):
+    feats, boxes, bidx, g = _pile(dev, s, dtype)
+    ext, st_ext = rap._append_virtual_level(feats, STRIDES)
+    fa = rap._prepare_ext(ext, boxes, bidx, s, 2, st_ext, 224.0, 4, torch.float32)
+    shapes = [tuple(f.shape) for f in ext]
+    return feats, boxes, bidx, g, fa, shapes
+
+
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_on_a_pile_of_long_lists(dev, s, dtype):
+    """Against autograd of the twin at the usual tolerances, where the p5
+    and virtual-level lists run longer than 4 segments (checked on the
+    kernel's own counts)."""
+    feats, boxes, bidx, g, fa, shapes = _pile_args(dev, s, dtype)
+    ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)
+    rap.multilevel_roi_align_backward(ba)
+    firsts = rap.backward_tiles(shapes)[1]
+    for lvl in (3, 4):
+        longest = int(ba.tile_count[firsts[lvl]:firsts[lvl + 1]].max())
+        assert longest > 4 * rap.SEGMENT, (lvl, longest)
+    fk = [f.clone().requires_grad_() for f in feats]
+    fp = [f.clone().requires_grad_() for f in feats]
+    got = torch.autograd.grad(rap.multilevel_roi_align_train(fk, boxes, bidx, s, STRIDES),
+                              fk, g)
+    ref = torch.autograd.grad(rap.multilevel_roi_align_ref(fp, boxes, bidx, s, STRIDES),
+                              fp, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        scale = max(1.0, float(b.float().abs().max()))
+        err = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-4 * scale
+        else:
+            assert bool((err <= 0.03 * scale / 8 + 0.05 * b.float().abs()).all())
+
+
+@pytest.mark.parametrize("s", [7, 14])
+def test_backward_kernel_follows_its_plan_and_reference_on_a_pile(dev, s):
+    """The kernel's plan is ``segment_plan`` of its own list starts; every
+    tile's list holds ascending ROIs, all of them in the plain routing's
+    list; the kernel equals ``ordered_backward_reference`` on the kernel's
+    lists (the same association of ROI terms) to 1e-5 * max|grad|: each
+    ROI's term differs in its last bits (an einsum there, FMA chains over
+    tables with FMA-contracted coordinates here), and over lists of ~100
+    ROIs that walks past 1e-6 * max|grad|; a tile with no ROI gets zeros (the
+    levels are filled with NaN first); the partial slots stay within what
+    the wrapper allocated."""
+    _, _, _, g, fa, shapes = _pile_args(dev, s)
+    ba = rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)
+    for t in ba.grads:
+        t.fill_(float("nan"))
+    got = rap.multilevel_roi_align_backward(ba)
+    starts, rois, plan = rap.backward_routing(fa.roi_i, fa.roi_f, shapes, s, 2)
+    own = (ba.tile_start, ba.lists[:int(ba.tile_start[-1])] >> rap.PAIR_BITS)
+    ref = rap.ordered_backward_reference(g, fa.roi_i, fa.roi_f, shapes, s, 2, routing=own)
+    torch.cuda.synchronize()
+    n_items, n_folds, _ = ba.counts.tolist()
+    plain = rap.segment_plan(ba.tile_start.cpu())
+    assert torch.equal(ba.items[:n_items].long().cpu(), plain.items)
+    assert torch.equal(ba.folds[:n_folds, :3].long().cpu(), plain.folds)
+    assert n_folds > 0 and int(ba.items[:n_items, 3].max()) < ba.partials.shape[0]
+    kstart, pstart = ba.tile_start.tolist(), starts.tolist()
+    entries, rois = (ba.lists >> rap.PAIR_BITS).tolist(), rois.tolist()
+    for t in range(len(kstart) - 1):
+        listed = entries[kstart[t]:kstart[t + 1]]
+        assert listed == sorted(set(listed)) and set(listed) <= set(rois[pstart[t]:pstart[t + 1]])
+    firsts = rap.backward_tiles(shapes)[1]
+    empty = 0
+    for lvl, (a, b) in enumerate(zip(got, ref)):
+        assert not bool(torch.isnan(a).any())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        counts = ba.tile_count[firsts[lvl]:firsts[lvl + 1]]
+        cut = a.shape[1] // 8 * 8, a.shape[2] // 8 * 8       # whole tiles only
+        tiles = a[:, :cut[0], :cut[1]].reshape(a.shape[0], cut[0] // 8, 8, cut[1] // 8, 8, -1)
+        per_tile = tiles.abs().amax(dim=(2, 4, 5)).flatten()
+        rows, cols = (a.shape[1] + 7) // 8, (a.shape[2] + 7) // 8
+        whole = counts.reshape(a.shape[0], rows, cols)[:, :cut[0] // 8, :cut[1] // 8].flatten()
+        assert bool((per_tile[whole == 0] == 0).all())
+        empty += int((whole == 0).sum())
+    assert empty > 0
+
+
+def test_backward_kernel_repeats_bit_for_bit_on_a_pile(dev):
+    """Two runs and a run under torch's deterministic mode give the same
+    bits where lists are cut into segments and folded."""
+    for s in (7, 14):
+        _, _, _, g, fa, shapes = _pile_args(dev, s)
+        runs = [[t.clone() for t in rap.multilevel_roi_align_backward(
+            rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2))] for _ in range(2)]
+        before = torch.are_deterministic_algorithms_enabled()
+        try:
+            torch.use_deterministic_algorithms(True)
+            runs.append(rap.multilevel_roi_align_backward(
+                rap.prepare_backward(g, fa.roi_i, fa.roi_f, shapes, s, 2)))
+        finally:
+            torch.use_deterministic_algorithms(before)
+        torch.cuda.synchronize()
+        for a, b, c in zip(*runs):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_backward_kernel_at_s32(dev):
+    """s=32: a slot holds one row of bins, so a ROI's bins come in pieces."""
+    feats, boxes, bidx = _inputs(dev, torch.float32)
+    g = torch.randn(boxes.shape[0], 32, 32, 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    fk = [f.clone().requires_grad_() for f in feats]
+    fp = [f.clone().requires_grad_() for f in feats]
+    got = torch.autograd.grad(rap.multilevel_roi_align_train(fk, boxes, bidx, 32, STRIDES),
+                              fk, g)
+    ref = torch.autograd.grad(rap.multilevel_roi_align_ref(fp, boxes, bidx, 32, STRIDES),
+                              fp, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,14 @@ JAX package on the CPU:
     backward kernel, w.r.t. the EXTENDED level list (virtual level last);
 (c) the kernel's own algorithm in plain PyTorch,
     ``ordered_backward_reference`` (per tile, the ROIs of its routing list
-    in ascending index), against ``jax.grad`` of the JAX
+    in ascending index, cut into segments of 1, 2 or ``SEGMENT`` ROIs whose
+    sums are added in segment order), against ``jax.grad`` of the JAX
     ``multilevel_roi_align_train``, whose backward is the Pallas kernel
     ``_ml_bwd_kernel``, run as the JAX package's tests run it on the CPU
     (``pallas_call(interpret=True)``), and against autograd of the twin; its
-    routing lists against a brute-force intersection of spans and tiles.
+    routing lists against a brute-force intersection of spans and tiles,
+    and its segment plan (work items in descending ROI count, partial slots,
+    folds) against a brute-force walk of those lists.
 
 Tolerance: f32, 1e-5 * max|grad| per level (the sums run in another order).
 Under ``torch.use_deterministic_algorithms(True)`` the twin and the routing
@@ -179,7 +182,7 @@ def test_routing_lists_equal_a_brute_force_intersection(name, s):
     8 x 8 cells; the span here comes from the twin's per-sample weights
     (``_ml_geometry``), the tiles are enumerated one by one."""
     ext, strides, fa, shapes, boxes, bidx, _ = _routing_case(name, s)
-    starts, rois = rap.backward_routing(fa.roi_i, fa.roi_f, shapes, s, 2)
+    starts, rois, _ = rap.backward_routing(fa.roi_i, fa.roi_f, shapes, s, 2)
     dims = tuple(sh[1:3] for sh in shapes)
     wy, wx, _, prep, _ = rap._ml_geometry(torch.from_numpy(boxes), torch.from_numpy(bidx),
                                           dims, strides, s, 2, 224.0, 4)
@@ -223,12 +226,50 @@ def interpret_mode(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", patched)
 
 
+@pytest.mark.parametrize("segment", [1, 2, rap.SEGMENT])
 @pytest.mark.parametrize("s", [7, 14])
 @pytest.mark.parametrize("name", sorted(BOXES))
-def test_ordered_reference_matches_the_pallas_backward_and_autograd(name, s, interpret_mode):
+def test_segment_plan_holds_every_pair_once_in_order(name, s, segment):
+    """The plan of ``backward_routing``: every tile has items; the items of a
+    tile, by list position, hold its list exactly once, each a run of at most
+    ``segment`` consecutive ROIs in ascending index, all but the last full;
+    items come in descending ROI count, ties by tile, then position; segment
+    0 stores into the gradient (slot -1), the others into partial slots
+    numbered in tile order, and one fold per cut tile names them."""
+    ext, strides, fa, shapes, boxes, bidx, _ = _routing_case(name, s)
+    starts, rois, plan = rap.backward_routing(fa.roi_i, fa.roi_f, shapes, s, 2, segment)
+    starts, rois = starts.tolist(), rois.tolist()
+    items, folds = plan.items.tolist(), plan.folds.tolist()
+    order = [(-count, tile, first) for tile, first, count, _ in items]
+    assert order == sorted(order)
+    by_tile = {}
+    for tile, first, count, slot in items:
+        by_tile.setdefault(tile, []).append((first, count, slot))
+    assert sorted(by_tile) == list(range(len(starts) - 1))
+    expected_folds, next_slot, cut = [], 0, 0
+    for tile in range(len(starts) - 1):
+        segs = sorted(by_tile[tile])
+        listed = rois[starts[tile]:starts[tile + 1]]
+        assert [r for first, count, _ in segs for r in rois[first:first + count]] == listed
+        assert segs[0][0] == starts[tile] and all(
+            a[0] + a[1] == b[0] for a, b in zip(segs, segs[1:]))
+        assert all(count == segment for _, count, _ in segs[:-1])
+        assert 0 <= segs[-1][1] <= segment and (segs[-1][1] > 0 or not listed)
+        assert listed == sorted(set(listed))
+        assert [slot for _, _, slot in segs] == [-1] + list(
+            range(next_slot, next_slot + len(segs) - 1))
+        if len(segs) > 1:
+            expected_folds.append([tile, next_slot, len(segs) - 1])
+            next_slot += len(segs) - 1
+            cut += 1
+    assert folds == expected_folds
+    assert cut == sum(b - a > segment for a, b in zip(starts, starts[1:]))
+
+
+def _ordered_reference_case(name, s, segment):
     ext, strides, fa, shapes, boxes, bidx, g = _routing_case(name, s)
     got = rap.ordered_backward_reference(torch.from_numpy(g), fa.roi_i, fa.roi_f, shapes,
-                                         s, 2)
+                                         s, 2, segment)
     assert all(a.dtype == torch.float32 and tuple(a.shape) == sh
                for a, sh in zip(got, shapes))
     leaves = [f.detach().requires_grad_() for f in ext]
@@ -251,10 +292,29 @@ def test_ordered_reference_matches_the_pallas_backward_and_autograd(name, s, int
         assert float(got[4].abs().max()) > 0
 
 
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("name", sorted(BOXES))
+def test_ordered_reference_matches_the_pallas_backward_and_autograd(name, s, interpret_mode):
+    _ordered_reference_case(name, s, rap.SEGMENT)
+
+
+@pytest.mark.parametrize("segment", [1, 2])
+@pytest.mark.parametrize("s", [7, 14])
+@pytest.mark.parametrize("name", sorted(BOXES))
+def test_ordered_reference_in_short_segments_matches_the_pallas_backward(
+        name, s, segment, interpret_mode):
+    """Segments of 1 and 2 ROIs: most tiles with a list are cut, so the
+    partial slots and the fold carry the sums."""
+    _ordered_reference_case(name, s, segment)
+
+
 def test_ordered_reference_with_no_rois_gives_zeros():
     ext, strides, fa, shapes, boxes, bidx, g = _routing_case("virtual", 7)
-    starts, rois = rap.backward_routing(fa.roi_i[:0], fa.roi_f[:0], shapes, 7, 2)
+    starts, rois, plan = rap.backward_routing(fa.roi_i[:0], fa.roi_f[:0], shapes, 7, 2)
     assert rois.numel() == 0 and int(starts.abs().max()) == 0
+    n_tiles = rap.backward_tiles(shapes)[1][-1]            # one empty item per tile
+    assert plan.items.tolist() == [[t, 0, 0, -1] for t in range(n_tiles)]
+    assert plan.folds.numel() == 0
     got = rap.ordered_backward_reference(torch.from_numpy(g[:0]), fa.roi_i[:0],
                                          fa.roi_f[:0], shapes, 7, 2)
     assert [tuple(t.shape) for t in got] == shapes
@@ -288,5 +348,6 @@ def test_deterministic_mode_runs_the_twin_and_the_routing_bit_for_bit():
     (o1, g1, r1), (o2, g2, r2) = runs
     assert torch.equal(o1, o2)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    assert torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1])
+    assert torch.equal(r1[2].items, r2[2].items) and torch.equal(r1[2].folds, r2[2].folds)
     assert float(sum(t.abs().sum() for t in g1)) > 0

@@ -231,20 +231,33 @@ def test_launch_plan_helpers():
     assert rap.forward_shared_bytes(14) == rap.STAGE_BYTES + rap.table_bytes(14)
     assert rap.CHUNK == 64
     assert rap.record_bytes(7) == tables7 and tables7 % 16 == 0
-    # stages of a ROI's cotangent tile and record: two where two fit in 64 KB
-    assert rap.backward_shared_bytes(7) == 2 * (49 * 64 * 4 + tables7)
-    assert rap.backward_shared_bytes(14) == 196 * 64 * 4 + rap.table_bytes(14)
-    assert rap.backward_shared_bytes(14) <= rap.MAX_SHARED_BYTES // 4   # 4 blocks an SM
-    assert rap.backward_shared_bytes(32) == 32 * 32 * 64 * 4 + rap.table_bytes(32)
+    # the gather's ring: STAGES slots, each a ROI's record (128-byte aligned)
+    # and rows of its cotangent's bins in whole tensor-copy boxes of 8 bins
+    # (all 7 rows at s=7, 3 rows of 16 at s=14, one row of 32 at s=32),
+    # behind 48 bytes a slot of mbarriers and a header, rounded up to 128
+    assert (rap.STAGES, rap.SEGMENT, rap.RING_BYTES, rap.BOX_BINS) == (3, 16, 55296, 8)
+    assert [rap.slot_bins(s) for s in (1, 7, 14, 32)] == [8, 56, 48, 32]
+    assert rap.backward_shared_bytes(7) == 256 + 3 * (2816 + 56 * 64 * 4)
+    assert rap.backward_shared_bytes(14) == 256 + 3 * (4864 + 48 * 64 * 4)
+    assert rap.backward_shared_bytes(32) == 256 + 3 * (10368 + 32 * 64 * 4)
+    for s in (1, 7, 14, 32):          # 3 blocks an SM of 228 KB, 1 KB reserved each
+        assert 3 * (rap.backward_shared_bytes(s) + 1024) <= 233472
     assert rap.backward_slots() == 5 * 6   # tiles of 8 cells a 32 x 40 span can meet
+    # the plan's bounds at the train step (R=1024 over 2860 tiles): items,
+    # partial slots (64 cells of C f32 each: 126 MB at C=256) and folds
+    assert rap.backward_bounds(1024, 2860) == (2860 + 1920, 1920, 1807)
+    assert rap.backward_bounds(0, 2860) == (2860, 0, 0)
+    assert rap.backward_layout(14) == (8, 30, rap.record_bytes(14), 16, 3, 48, 34)
     assert rap.forward_plan(7) == (128, 24576) and rap.forward_plan(14) == (256, 49152)
-    for s in (7, 14):
+    for s in (7, 14, 32):
         rap.check_launch_plan(s, 2, 256, rap.backward_shared_bytes(s))
     # the launch arguments carry no plan of their own: it follows from s
     fields = {f.name for f in dataclasses.fields(rap.LaunchArgs)}
     assert fields == {"levels", "roi_i", "roi_f", "out", "s", "r"}
     fields = {f.name for f in dataclasses.fields(rap.BackwardArgs)}
-    assert fields == {"g", "roi_i", "roi_f", "grads", "records", "keys", "s", "r"}
+    assert fields == {"g", "roi_i", "roi_f", "grads", "records", "spans", "words",
+                      "tile_count", "tile_start", "lists", "items", "folds", "counts",
+                      "partials", "s", "r"}
 
 
 @pytest.mark.parametrize("s", [1, 2, 7, 8, 9, 14, 28, 64])
@@ -267,7 +280,7 @@ def test_forward_plan_is_one_the_source_takes(s):
     (dict(s=40), "s \\* r"),
     (dict(s=0), "s \\* r"),
     (dict(r=0), "s \\* r"),
-    (dict(s=32, shared=rap.backward_shared_bytes(32)), "shared memory"),
+    (dict(s=32, shared=rap.MAX_SHARED_BYTES + 16), "shared memory"),
 ])
 def test_launch_plan_rejects(kwargs, match):
     plan = dict(s=7, r=2, channels=256, shared=None)

@@ -27,16 +27,17 @@ for ``torch.utils.flop_counter``.
 ``multilevel_roi_align_train`` is the differentiable pooler of the train
 path (``multilevel_roi_align_train`` of the JAX package): f32 out, gradient
 w.r.t. the levels only. On CUDA tensors it is a ``torch.autograd.Function``
-whose forward is the kernel above and whose backward is K3, the routing and
-gather kernels of the same source (the port of the TPU kernel
-``_ml_bwd_kernel``), counted once per call in
-``multilevel_roi_align_backward.launches``; on CPU tensors it is the
-twin under autograd, which is also the backward kernel's plain version. The
-backward kernel sums every gradient cell's ROIs in ascending ROI index, as
-the Pallas kernel adds ROI after ROI in grid order: two runs give the same
-bits, and it runs under ``torch.use_deterministic_algorithms(True)``.
-``ordered_backward_reference`` renders its algorithm in plain PyTorch (the
-tests hold it against the JAX package).
+whose forward is the kernel above and whose backward is K3, six launches of
+the same source (the port of the TPU kernel ``_ml_bwd_kernel``), counted
+once per call in ``multilevel_roi_align_backward.launches``; on CPU tensors
+it is the twin under autograd, which is also the backward kernel's plain
+version. The backward kernel sums every gradient cell's ROIs in ascending
+ROI index, in segments of ``SEGMENT`` ROIs whose sums are then added in
+order, where the Pallas kernel adds ROI after ROI in grid order: either way
+two runs give the same bits, and it runs under
+``torch.use_deterministic_algorithms(True)``. ``ordered_backward_reference``
+renders its algorithm in plain PyTorch (the tests hold it against the JAX
+package).
 
 The kernels' design (the source's header has the detail). For one ROI the
 pooled output is ``einsum(Wy, Wx, window)`` with the dense per-axis weights of
@@ -47,12 +48,13 @@ is the ROI's *span* (``roi_spans``). One block serves one (ROI, chunk of
 ``CHUNK`` = 64 channels): the forward copies the rows of the span that a group
 of output rows needs into a buffer in shared memory (block size and buffer
 from ``forward_plan``) with 16-byte copies and interpolates from there. The
-backward is a gather: one block serves one (tile of ``BACKWARD_TILE`` x
-``BACKWARD_TILE`` cells of a gradient level and image, chunk of channels).
-A routing launch before it stores each ROI's tables and lists the ROIs that
-touch each tile (``backward_routing`` is its plain version), and the block
-adds them one after another into registers and writes each cell once (no
-zero fill, no atomics). Both are bound by bytes on the card. That
+backward is a gather over tiles of ``BACKWARD_TILE`` x ``BACKWARD_TILE``
+cells of a gradient level and image: a routing launch stores each ROI's
+tables, a counting sort lists the ROIs that touch each tile, a plan cuts
+the lists into segments, heaviest first (``backward_routing`` is the plain
+version of all three), a persistent grid adds each segment's ROIs one after
+another into registers, and a fold adds a cut tile's segments (no zero fill,
+and no atomic decides a value). Both are bound by bytes on the card. That
 is why C must be a multiple of 8 and all storage 16-byte aligned:
 ``_check_inputs`` and ``_prepare_ext`` raise otherwise. The single-level
 window kernel (``ops/roi_align_single.py``) is built on the same design and
@@ -65,7 +67,7 @@ import dataclasses
 import functools
 import itertools
 import math
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.utils.flop_counter
@@ -104,12 +106,15 @@ def forward_shared_bytes(s: int, stage_bytes: int = STAGE_BYTES) -> int:
 
 
 BACKWARD_TILE = 8                 # cells per side of a backward tile (kTile)
-RING_BYTES = 64 * 1024            # the backward's ring of stages (kRingBytes)
-MAX_STAGES = 2
+SEGMENT = 16                      # ROIs of a tile list per work item (kSegment)
+STAGES = 3                        # the gather's ring of slots (kStages)
+RING_BYTES = 55296                # its slots together (kRingBytes)
+PAIR_BITS = 34                    # a list entry's low bits: the pair's geometry
+BOX_BINS = 8                      # bins of a row per tensor copy (kBoxBins)
 
 
 def backward_slots() -> int:
-    """Routing keys per ROI: the most tiles a span can meet (slots_of)."""
+    """List-entry slots per ROI: the most tiles a span can meet (slots_of)."""
     return ((WIN_Y - 1) // BACKWARD_TILE + 2) * ((WIN - 1) // BACKWARD_TILE + 2)
 
 
@@ -118,12 +123,38 @@ def record_bytes(s: int) -> int:
     return (table_bytes(s) + 15) // 16 * 16
 
 
+def _round_up(n: int, k: int) -> int:
+    return (n + k - 1) // k * k
+
+
+def slot_bins(s: int) -> int:
+    """Bins of f32 cotangent (``CHUNK`` channels each) one slot of the
+    gather's ring holds, in whole boxes of ``BOX_BINS`` (a tensor copy's row
+    of bins): what ``RING_BYTES / STAGES`` leaves after the 128-byte
+    aligned record, at least one row of s bins, at most all s rows."""
+    row = _round_up(s, BOX_BINS)
+    fit = (RING_BYTES // STAGES - _round_up(record_bytes(s), 128)) // (CHUNK * 4)
+    return min(row * s, max(row, fit // BOX_BINS * BOX_BINS))
+
+
 def backward_shared_bytes(s: int) -> int:
-    """Dynamic shared memory of one backward block: a ring of as many stages
-    as fit in ``RING_BYTES`` (1 to ``MAX_STAGES``), each a ROI's f32
-    cotangent (s, s, CHUNK) + its record."""
-    stage = s * s * CHUNK * 4 + record_bytes(s)
-    return stage * min(MAX_STAGES, max(1, RING_BYTES // stage))
+    """Dynamic shared memory of one gather block: per slot of its ring of
+    ``STAGES``, two mbarriers (16 bytes) and a header (32), rounded up to
+    128 bytes, then the slots, each a ROI's record (128-byte aligned) +
+    ``slot_bins(s)`` bins of its f32 cotangent."""
+    return (_round_up(STAGES * 48, 128)
+            + STAGES * (_round_up(record_bytes(s), 128) + slot_bins(s) * CHUNK * 4))
+
+
+def backward_bounds(n_roi: int, n_tiles: int) -> Tuple[int, int, int]:
+    """What the plan can need at most, known without a look at the data
+    (each ROI meets at most ``backward_slots()`` tiles, so the lists hold at
+    most P = R * slots pairs): work items (one per tile + one per further
+    segment), partial slots (segments after the first of a cut tile) and
+    folds (tiles cut into segments)."""
+    pairs = n_roi * backward_slots()
+    return (n_tiles + pairs // SEGMENT, pairs // SEGMENT,
+            min(n_tiles, pairs // (SEGMENT + 1)))
 
 
 def forward_plan(s: int) -> Tuple[int, int]:
@@ -510,14 +541,34 @@ def _forward_fn():
 def _route_fn():
     return _c_fn("u2seg_roi_align_ml_backward_route",
                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _lists_fn():
+    return _c_fn("u2seg_roi_align_ml_backward_lists",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    return _c_fn("u2seg_roi_align_ml_backward_plan",
+                 [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 5)
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_fn():
     return _c_fn("u2seg_roi_align_ml_backward",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_fn():
+    return _c_fn("u2seg_roi_align_ml_backward_fold",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def kernel_shared_bytes(backward: bool, s: int) -> int:
@@ -526,17 +577,24 @@ def kernel_shared_bytes(backward: bool, s: int) -> int:
     return fn(int(backward), s, WIN_Y, WIN, forward_plan(s)[1])
 
 
-def kernel_backward_layout(s: int) -> Tuple[int, int, int]:
+def kernel_backward_layout(s: int) -> Tuple[int, ...]:
     """What the built library says of the backward (builds it): the tile
-    side in cells, the routing keys per ROI and the bytes of a ROI's
-    record."""
+    side in cells, the list-entry slots per ROI, the bytes of a ROI's record,
+    the ROIs of a segment, the ring's slots, the bins a slot holds and a
+    list entry's pair bits."""
     lib = _cuda.load("roi_align_ml")
     fn = lib.u2seg_roi_align_ml_backward_layout
     fn.restype = None
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 7)()
     fn(s, WIN_Y, WIN, ctypes.cast(out, ctypes.c_void_p))
     return tuple(out)
+
+
+def backward_layout(s: int) -> Tuple[int, ...]:
+    """The same seven numbers as the wrapper plans them."""
+    return (BACKWARD_TILE, backward_slots(), record_bytes(s), SEGMENT, STAGES,
+            slot_bins(s), PAIR_BITS)
 
 
 def _level_tables(levels):
@@ -582,7 +640,15 @@ class BackwardArgs:
     roi_f: torch.Tensor
     grads: List[torch.Tensor]    # f32 (B, H_l, W_l, C) per extended level
     records: torch.Tensor        # (R, record_bytes(s)) uint8: the ROIs' tables
-    keys: torch.Tensor           # (R, backward_slots()) int64: routing keys
+    spans: torch.Tensor          # (R, 4) int32: each ROI's span in tiles
+    words: torch.Tensor          # (R, backward_slots()) int64: its list entries
+    tile_count: torch.Tensor     # (tiles,) int32: the ROIs of each tile
+    tile_start: torch.Tensor     # (tiles + 1,) int32: each tile's first list entry
+    lists: torch.Tensor          # (bound,) int64: the tiles' lists, one after another
+    items: torch.Tensor          # (bound, 4) int32: tile, first entry, ROIs, partial slot
+    folds: torch.Tensor          # (bound, 4) int32: tile, first partial slot, partials, 0
+    counts: torch.Tensor         # (3,) int32: items, folds, the gather's next work
+    partials: torch.Tensor       # (bound, 64, C) f32: segments 1, 2, ... of cut tiles
     s: int
     r: int
 
@@ -597,18 +663,51 @@ def backward_tiles(shapes) -> Tuple[List[Tuple[int, int]], List[int]]:
     return tiles, firsts
 
 
-def backward_routing(roi_i, roi_f, shapes, s, r):
-    """The plain version of the backward's routing (its first launch and the
-    sort after it), torch ops that run under
+class SegmentPlan(NamedTuple):
+    """The gather's work: ``items`` (N, 4) int64 rows (tile, first list
+    position, ROIs, partial slot) in the order the grid takes them, and
+    ``folds`` (F, 3) rows (tile, first partial slot, partials)."""
+    items: torch.Tensor
+    folds: torch.Tensor
+
+
+def segment_plan(tile_start, segment: int = SEGMENT) -> SegmentPlan:
+    """The plain version of the plan launch. Every tile's list is cut into
+    segments of ``segment`` consecutive ROIs (an empty list: one segment of
+    none); the items, one per segment, come in descending ROI count, ties by
+    tile, then segment. Segment 0 of a tile stores into the gradient level
+    (slot -1); segment k >= 1 of a tile cut into n stores into partial slot
+    ``first + k - 1``, the tiles' slots numbered in tile order; a fold adds
+    them, in segment order, into what segment 0 stored."""
+    starts = [int(v) for v in tile_start.tolist()]
+    segs, folds, slot = [], [], 0
+    for t, (a, b) in enumerate(zip(starts, starts[1:])):
+        n = b - a
+        cut = max(1, -(-n // segment))
+        for k in range(cut):
+            segs.append((min(segment, n - k * segment), t, k, a + k * segment,
+                         slot + k - 1 if k else -1))
+        if cut > 1:
+            folds.append((t, slot, cut - 1))
+            slot += cut - 1
+    segs.sort(key=lambda e: (-e[0], e[1], e[2]))
+    items = [(t, first, count, part) for count, t, _, first, part in segs]
+    return SegmentPlan(torch.tensor(items, dtype=torch.int64).reshape(-1, 4),
+                       torch.tensor(folds, dtype=torch.int64).reshape(-1, 3))
+
+
+def backward_routing(roi_i, roi_f, shapes, s, r, segment: int = SEGMENT):
+    """The plain version of the backward's routing (its routing, count, plan
+    and fill launches), torch ops that run under
     ``torch.use_deterministic_algorithms(True)``: ``tile_start`` (tiles + 1,)
-    int32 and ``tile_rois`` (P,) int32, where the ROIs of tile t are
+    int32, ``tile_rois`` (P,) int32, where the ROIs of tile t are
     ``tile_rois[tile_start[t]:tile_start[t + 1]]`` in ascending index: those
     whose span, widened by one cell on each side, meets the tile on the ROI's
-    level and image. The kernel takes the span of its own tables; this one
-    takes ``roi_spans`` of torch's f32 weights, and the widening covers a
-    last-bit difference between the two (the kernel contracts
-    ``c0 + rel * bin`` into one FMA). A ROI listed for a tile that its exact
-    span misses adds nothing there.
+    level and image; and the ``segment_plan`` of those lists. The kernel
+    takes the span of its own tables; this one takes ``roi_spans`` of torch's
+    f32 weights, and the widening covers a last-bit difference between the
+    two (the kernel contracts ``c0 + rel * bin`` into one FMA). A ROI listed
+    for a tile that its exact span misses adds nothing there.
 
     Every ROI gets a fixed number of slots (the most tiles a window widened
     by one cell can meet), so the sort has a size known without a sync;
@@ -619,8 +718,9 @@ def backward_routing(roi_i, roi_f, shapes, s, r):
     tiles, firsts = backward_tiles(shapes)
     n_tiles = firsts[-1]
     if n == 0:
-        return (torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev))
+        starts = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+        return starts, torch.zeros(0, dtype=torch.int32, device=dev), segment_plan(
+            starts, segment)
     lvl = roi_i[:, 0].long()
     oy, ox, b = roi_i[:, 1].long(), roi_i[:, 2].long(), roi_i[:, 3].long()
     h = device_table([sh[1] for sh in shapes], torch.int64, dev)[lvl]
@@ -646,17 +746,38 @@ def backward_routing(roi_i, roi_f, shapes, s, r):
     keys = torch.where(ok, tile * n + roi, n_tiles * n).flatten()
     keys = torch.sort(keys).values
     starts = torch.searchsorted(keys, torch.arange(n_tiles + 1, device=dev) * n)
-    return starts.to(torch.int32), (keys % n).to(torch.int32)
+    starts = starts.to(torch.int32)
+    return starts, (keys % n).to(torch.int32), segment_plan(starts, segment)
 
 
-def ordered_backward_reference(g, roi_i, roi_f, shapes, s, r) -> List[torch.Tensor]:
+def _tile_box(k, tiles, firsts, shapes):
+    """Level, image and the cell box [y0, y1) x [x0, x1) of tile k."""
+    level = max(i for i, f in enumerate(firsts[:-1]) if f <= k)
+    rows, cols = tiles[level]
+    b, rest = divmod(k - firsts[level], rows * cols)
+    y0, x0 = rest // cols * BACKWARD_TILE, rest % cols * BACKWARD_TILE
+    return (level, b, y0, min(y0 + BACKWARD_TILE, shapes[level][1]), x0,
+            min(x0 + BACKWARD_TILE, shapes[level][2]))
+
+
+def ordered_backward_reference(g, roi_i, roi_f, shapes, s, r, segment: int = SEGMENT,
+                               routing=None) -> List[torch.Tensor]:
     """K3's algorithm in plain PyTorch, for the tests: the routing lists of
-    ``backward_routing``, then for every tile the ROIs of its list in order,
-    each adding its window cotangent ``Wy^T g Wx`` (the dense weights of
-    ``_pooled_axis_weights_host``) over the tile's cells. f32 gradients at the
-    true dims of the extended levels."""
-    starts, rois = backward_routing(roi_i, roi_f, shapes, s, r)
-    starts, rois = starts.tolist(), rois.tolist()
+    ``backward_routing`` (or ``routing``, a pair ``tile_start``,
+    ``tile_rois`` of lists to follow instead, such as the kernel's own) and
+    their ``segment_plan``; every work item adds the window
+    cotangents ``Wy^T g Wx`` (the dense weights of
+    ``_pooled_axis_weights_host``) of its segment's ROIs, in order, over its
+    tile's cells into a sum that starts at zero and stores it (segment 0
+    into the gradient, the others into partial slots); each fold then adds a
+    cut tile's partials, in segment order, to what segment 0 stored. f32
+    gradients at the true dims of the extended levels."""
+    if routing is None:
+        starts, rois, plan = backward_routing(roi_i, roi_f, shapes, s, r, segment)
+    else:
+        starts, rois = routing
+        plan = segment_plan(starts, segment)
+    rois = rois.tolist()
     lvl = roi_i[:, 0].long()
     h = device_table([sh[1] for sh in shapes], torch.float32, g.device)[lvl]
     w = device_table([sh[2] for sh in shapes], torch.float32, g.device)[lvl]
@@ -666,16 +787,12 @@ def ordered_backward_reference(g, roi_i, roi_f, shapes, s, r) -> List[torch.Tens
     gwin = torch.einsum("rpy,rpqc,rqx->ryxc", wy, g, wx)   # (R, WIN_Y, WIN, C)
     grads = [torch.zeros(sh, dtype=torch.float32, device=g.device) for sh in shapes]
     tiles, firsts = backward_tiles(shapes)
-    t = BACKWARD_TILE
     origins = roi_i[:, 1:3].tolist()
-    for k in range(firsts[-1]):
-        level = max(i for i, f in enumerate(firsts[:-1]) if f <= k)
-        rows, cols = tiles[level]
-        b, rest = divmod(k - firsts[level], rows * cols)
-        y0, x0 = rest // cols * t, rest % cols * t
-        y1, x1 = min(y0 + t, shapes[level][1]), min(x0 + t, shapes[level][2])
+    partials = {}
+    for k, first, count, slot in plan.items.tolist():
+        level, b, y0, y1, x0, x1 = _tile_box(k, tiles, firsts, shapes)
         acc = torch.zeros(y1 - y0, x1 - x0, g.shape[-1], device=g.device)
-        for roi in rois[starts[k]:starts[k + 1]]:
+        for roi in rois[first:first + count]:
             oy, ox = origins[roi]
             # the tile's cells inside the ROI's window
             ya, yb = max(y0, oy), min(y1, oy + WIN_Y)
@@ -683,57 +800,113 @@ def ordered_backward_reference(g, roi_i, roi_f, shapes, s, r) -> List[torch.Tens
             if ya < yb and xa < xb:
                 acc[ya - y0:yb - y0, xa - x0:xb - x0] += gwin[roi, ya - oy:yb - oy,
                                                              xa - ox:xb - ox]
-        grads[level][b, y0:y1, x0:x1] = acc
+        if slot < 0:
+            grads[level][b, y0:y1, x0:x1] = acc
+        else:
+            partials[slot] = acc
+    for k, first, n in plan.folds.tolist():
+        level, b, y0, y1, x0, x1 = _tile_box(k, tiles, firsts, shapes)
+        for slot in range(first, first + n):
+            grads[level][b, y0:y1, x0:x1] += partials[slot]
     return grads
 
 
 def prepare_backward(g, roi_i, roi_f, shapes, s, r) -> BackwardArgs:
     """Bring the cotangent to contiguous f32 and allocate what the kernels
-    write: the f32 gradient levels at their true dims (every element is
-    written), the ROIs' records and their routing keys."""
+    write (``torch.empty``, sized by ``backward_bounds``, no sync): the f32
+    gradient levels at their true dims (every element is written), the ROIs'
+    records, spans and list entries, the tiles' counts, starts and lists,
+    the plan and the partial sums of cut tiles."""
     if g.device.type != "cuda" or g.shape != (roi_i.shape[0], s, s, shapes[0][3]):
         raise ValueError("cotangent must be a CUDA tensor of shape (R, s, s, C)")
     g = g.to(torch.float32).contiguous()
-    grads = [torch.empty(sh, dtype=torch.float32, device=g.device)
-             for sh in shapes]
+    dev = g.device
+    grads = [torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
     n = roi_i.shape[0]
-    records = torch.empty((n, record_bytes(s)), dtype=torch.uint8, device=g.device)
-    keys = torch.empty((n, backward_slots()), dtype=torch.int64, device=g.device)
-    check_aligned([g, *grads, records, keys], "cotangent, gradient and routing")
-    return BackwardArgs(g, roi_i, roi_f, grads, records, keys, s, r)
+    if n >= 1 << (63 - PAIR_BITS):
+        raise ValueError(f"{n} ROIs: a list entry holds fewer than 2^{63 - PAIR_BITS}")
+    n_tiles = backward_tiles(shapes)[1][-1]
+    n_items, n_partials, n_folds = backward_bounds(n, n_tiles)
+    empty = functools.partial(torch.empty, device=dev)
+    records = empty((n, record_bytes(s)), dtype=torch.uint8)
+    spans = empty((n, 4), dtype=torch.int32)
+    words = empty((n, backward_slots()), dtype=torch.int64)
+    tile_count = empty(n_tiles, dtype=torch.int32)
+    tile_start = empty(n_tiles + 1, dtype=torch.int32)
+    lists = empty(max(1, n * backward_slots()), dtype=torch.int64)
+    items = empty((n_items, 4), dtype=torch.int32)
+    folds = empty((max(1, n_folds), 4), dtype=torch.int32)
+    counts = empty(3, dtype=torch.int32)
+    partials = empty((max(1, n_partials), BACKWARD_TILE ** 2, shapes[0][3]),
+                     dtype=torch.float32)
+    check_aligned([g, *grads, records, spans, words, lists, items, folds, partials],
+                  "cotangent, gradient and routing")
+    return BackwardArgs(g, roi_i, roi_f, grads, records, spans, words, tile_count,
+                        tile_start, lists, items, folds, counts, partials, s, r)
+
+
+def backward_steps(a: BackwardArgs):
+    """The launches of one K3 call in order, as (name, function of no
+    arguments) on the current stream: the routing launch (each ROI's record,
+    span and list entries), the count launch (the ROIs of each tile), the
+    plan launch (list starts, work items, folds), the fill launch (the
+    tiles' lists, ROIs in ascending index), the gather launch and the fold
+    launch. Each may be run alone once the ones before it have run."""
+    n_roi, _, _, c = a.g.shape
+    check_launch_plan(a.s, a.r, c, backward_shared_bytes(a.s))
+    shapes = [tuple(t.shape) for t in a.grads]
+    n_tiles = backward_tiles(shapes)[1][-1]
+    ptrs, hs, ws, _ = _level_tables(a.grads)       # the casts keep their arrays
+    nl, batch = len(shapes), shapes[0][0]
+    stream = lambda: torch.cuda.current_stream(a.g.device).cuda_stream  # noqa: E731
+
+    def route():
+        if n_roi:
+            lib, fn = _route_fn()
+            _cuda.check(lib, fn(hs, ws, nl, batch, a.roi_i.data_ptr(), a.roi_f.data_ptr(),
+                                n_roi, a.s, a.r, WIN_Y, WIN, a.records.data_ptr(),
+                                a.spans.data_ptr(), a.words.data_ptr(), stream()),
+                        "roi_align_ml backward routing launch")
+
+    def lists(fill):
+        lib, fn = _lists_fn()
+        _cuda.check(lib, fn(int(fill), hs, ws, nl, batch, n_tiles, a.spans.data_ptr(), n_roi,
+                            WIN_Y, WIN, a.tile_count.data_ptr(), a.tile_start.data_ptr(),
+                            a.words.data_ptr(), a.lists.data_ptr(), stream()),
+                    "roi_align_ml backward list launch")
+
+    def plan():
+        lib, fn = _plan_fn()
+        _cuda.check(lib, fn(a.tile_count.data_ptr(), n_tiles, a.tile_start.data_ptr(),
+                            a.items.data_ptr(), a.folds.data_ptr(), a.counts.data_ptr(),
+                            stream()),
+                    "roi_align_ml backward plan launch")
+
+    def gather():
+        lib, fn = _backward_fn()
+        _cuda.check(lib, fn(ptrs, hs, ws, nl, batch, a.records.data_ptr(), a.g.data_ptr(),
+                            a.lists.data_ptr(), a.items.data_ptr(), a.counts.data_ptr(),
+                            a.partials.data_ptr(), a.items.shape[0], n_tiles, n_roi, c,
+                            a.s, WIN_Y, WIN, stream()),
+                    "roi_align_ml backward launch")
+
+    def fold():
+        lib, fn = _fold_fn()
+        _cuda.check(lib, fn(ptrs, hs, ws, nl, batch, a.folds.data_ptr(), a.counts.data_ptr(),
+                            a.partials.data_ptr(), a.folds.shape[0], n_tiles, c, stream()),
+                    "roi_align_ml backward fold launch")
+
+    return [("route", route), ("count", lambda: lists(False)), ("plan", plan),
+            ("fill", lambda: lists(True)), ("gather", gather), ("fold", fold)]
 
 
 def multilevel_roi_align_backward(a: BackwardArgs) -> List[torch.Tensor]:
-    """K3 on the current stream: the routing launch (each ROI's record and
-    keys), a sort of the keys into per-tile lists (torch ops, deterministic),
-    then the gather launch: every cell of ``a.grads`` gets the sum of its
-    ROIs' cotangents in ascending ROI index. Counts one launch in
-    ``multilevel_roi_align_backward.launches``."""
-    n_roi, _, _, c = a.g.shape
-    check_launch_plan(a.s, a.r, c, backward_shared_bytes(a.s))
-    _, firsts = backward_tiles([tuple(t.shape) for t in a.grads])
-    n_tiles = firsts[-1]
-    ptrs, hs, ws, _keep = _level_tables(a.grads)
-    stream = torch.cuda.current_stream(a.g.device).cuda_stream
-    dev = a.g.device
-    if n_roi:
-        lib, route = _route_fn()
-        code = route(hs, ws, len(a.grads), a.grads[0].shape[0], a.roi_i.data_ptr(),
-                     a.roi_f.data_ptr(), n_roi, a.s, a.r, WIN_Y, WIN, n_tiles,
-                     a.records.data_ptr(), a.keys.data_ptr(), stream)
-        _cuda.check(lib, code, "roi_align_ml backward routing launch")
-        keys = torch.sort(a.keys.flatten()).values
-        tile_start = torch.searchsorted(
-            keys, torch.arange(n_tiles + 1, device=dev) * n_roi).to(torch.int32)
-        tile_rois = (keys % n_roi).to(torch.int32)
-    else:
-        tile_start = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
-        tile_rois = tile_start[:0]
-    lib, fn = _backward_fn()
-    code = fn(ptrs, hs, ws, len(a.grads), a.grads[0].shape[0], a.roi_i.data_ptr(),
-              a.records.data_ptr(), a.g.data_ptr(), tile_start.data_ptr(),
-              tile_rois.data_ptr(), n_tiles, n_roi, c, a.s, WIN_Y, WIN, stream)
-    _cuda.check(lib, code, "roi_align_ml backward launch")
+    """K3 on the current stream (``backward_steps``): every cell of
+    ``a.grads`` gets the sum of its ROIs' cotangents, ROI after ROI in
+    ascending index within a segment of ``SEGMENT`` of them, segments in
+    order. Counts one launch in ``multilevel_roi_align_backward.launches``."""
+    for _, step in backward_steps(a):
+        step()
     multilevel_roi_align_backward.launches += 1
     return a.grads
 
