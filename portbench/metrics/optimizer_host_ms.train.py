@@ -1,0 +1,8 @@
+"""Host ms per training step in the program's ``u2s.optimizer`` span
+(gradient clipping and the update), over the traced whole steps; the
+profiler stretches them."""
+from portbench import spantrace
+
+
+def read(record):
+    return spantrace.host_ms_per_step(record, ["u2s.optimizer"])

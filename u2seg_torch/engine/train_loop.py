@@ -32,6 +32,7 @@ from u2seg_torch.parallel import comm
 from u2seg_torch.parallel.mesh import create_mesh, shard_batch
 from u2seg_torch.solver import build_lr_schedule
 from u2seg_torch.structures.instances import GtInstances
+from u2seg_torch.utils.spans import GcSpans, span
 
 logger = logging.getLogger(__name__)
 
@@ -54,14 +55,15 @@ class TrainerBase:
     def train(self, start_iter: int, max_iter: int):
         self.iter = self.start_iter = start_iter
         self.max_iter = max_iter
-        with EventStorage(start_iter) as self.storage:
+        with EventStorage(start_iter) as self.storage, GcSpans():
             try:
                 self.before_train()
                 for self.iter in range(start_iter, max_iter):
-                    self.storage.iter = self.iter
-                    self.before_step()
-                    self.run_step()
-                    self.after_step()
+                    with span("u2s.step", self.iter):
+                        self.storage.iter = self.iter
+                        self.before_step()
+                        self.run_step()
+                        self.after_step()
                 self.iter += 1
             finally:
                 self.after_train()
@@ -78,11 +80,13 @@ class TrainerBase:
 
     def before_step(self):
         for h in self._hooks:
-            h.before_step()
+            with span("u2s.hook." + type(h).__name__):
+                h.before_step()
 
     def after_step(self):
         for h in self._hooks:
-            h.after_step()
+            with span("u2s.hook." + type(h).__name__):
+                h.after_step()
 
     def run_step(self):
         raise NotImplementedError
@@ -178,19 +182,24 @@ class DefaultTrainer(TrainerBase):
         return next(self._loader)
 
     def run_step(self):
-        batch = batch_from_numpy(self._next_batch_raw())
-        batch = batch.to(self.device) if self._sharded_loader else shard_batch(self.mesh, batch)
+        with span("u2s.data"):
+            raw = self._next_batch_raw()
+        with span("u2s.upload"):
+            batch = batch_from_numpy(raw)
+            batch = (batch.to(self.device) if self._sharded_loader
+                     else shard_batch(self.mesh, batch))
         self._generator.manual_seed(
             sampling_seed(self.seed + 1, self.mesh.rank, self.state.step))
         metrics = self.step_fn(batch, self._generator)
-        # one host transfer of the (already averaged) metrics
-        values = torch.stack([v.float() for v in metrics.values()]).tolist()
-        metrics = dict(zip(metrics, values))
-        if not math.isfinite(metrics.get("total_loss", 0.0)):
-            raise FloatingPointError(
-                f"Loss became infinite or NaN at iteration={self.iter}! "
-                f"metrics={metrics}")
-        self.storage.put_scalars(**metrics, smoothing_hint=True)
+        with span("u2s.metrics"):
+            # one host transfer of the (already averaged) metrics
+            values = torch.stack([v.float() for v in metrics.values()]).tolist()
+            metrics = dict(zip(metrics, values))
+            if not math.isfinite(metrics.get("total_loss", 0.0)):
+                raise FloatingPointError(
+                    f"Loss became infinite or NaN at iteration={self.iter}! "
+                    f"metrics={metrics}")
+            self.storage.put_scalars(**metrics, smoothing_hint=True)
 
     def build_hooks(self) -> List[hooks_lib.HookBase]:
         cfg = self.cfg

@@ -28,6 +28,7 @@ from u2seg_torch.ops.norms import BatchNorm2d
 from u2seg_torch.parallel import comm
 from u2seg_torch.solver import ScheduledSGD, build_optimizer
 from u2seg_torch.structures.instances import GtInstances
+from u2seg_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -105,23 +106,26 @@ def make_train_step(
     stats = bn_running_stats(model)
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        losses = model(batch.images, batch.image_sizes, gt=batch.gt,
-                       sem_seg_gt=batch.sem_seg, train=True,
-                       generator=generator)
-        total = sum(losses.values())
-        total.backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        if world > 1:
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            values = torch.stack([v.float() for v in metrics.values()])
-            comm.all_reduce_mean_([p.grad for p in params] + stats + [values])
-            metrics = dict(zip(metrics, values.unbind(0)))
-        optimizer.step()
+        with span("u2s.forward"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            losses = model(batch.images, batch.image_sizes, gt=batch.gt,
+                           sem_seg_gt=batch.sem_seg, train=True,
+                           generator=generator)
+            total = sum(losses.values())
+        with span("u2s.backward"):
+            total.backward()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total_loss"] = total.detach()
+            if world > 1:
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                values = torch.stack([v.float() for v in metrics.values()])
+                comm.all_reduce_mean_([p.grad for p in params] + stats + [values])
+                metrics = dict(zip(metrics, values.unbind(0)))
+        with span("u2s.optimizer"):
+            optimizer.step()
         return metrics
 
     return step

@@ -22,6 +22,7 @@ from u2seg_torch.models.sem_seg import SemSegFPNHead
 from u2seg_torch.ops.fusion import greedy_take, winner_map
 from u2seg_torch.ops.mask_paste import paste_masks
 from u2seg_torch.structures.instances import Detections, GtInstances
+from u2seg_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -67,8 +68,9 @@ class PanopticFPN(GeneralizedRCNN):
         channels-last memory) -> the loss dict."""
         out = {}
         if sem_seg_gt is not None:
-            out.update(self.sem_seg_head.losses(self.sem_seg_head(features),
-                                                sem_seg_gt))
+            with span("u2s.sem_seg"):
+                out.update(self.sem_seg_head.losses(self.sem_seg_head(features),
+                                                    sem_seg_gt))
         out.update(super().losses_from_features(features, image_sizes, gt,
                                                 generator=generator))
         return out
@@ -76,7 +78,8 @@ class PanopticFPN(GeneralizedRCNN):
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
                   combine: bool = False) -> PanopticOutput:
         features = self.features(images)
-        sem_logits = self.sem_seg_head(features)
+        with span("u2s.sem_seg"):
+            sem_logits = self.sem_seg_head(features)
         rpn = self.proposal_generator(features, image_sizes)
         det = self.roi_heads(features, rpn.proposal_boxes,
                              rpn.proposal_scores, rpn.proposal_valid,

@@ -27,6 +27,7 @@ from u2seg_torch.models.rpn import RPN
 from u2seg_torch.models.sem_seg import SemSegFPNHead
 from u2seg_torch.ops.consts import device_table
 from u2seg_torch.structures.instances import Detections, GtInstances
+from u2seg_torch.utils.spans import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -59,9 +60,10 @@ class ImageModel(nn.Module):
         return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
     def features(self, images: torch.Tensor):
-        feats = self.backbone(self.normalize(images))
-        return {k: v.contiguous(memory_format=torch.channels_last)
-                for k, v in feats.items()}
+        with span("u2s.backbone"):
+            feats = self.backbone(self.normalize(images))
+            return {k: v.contiguous(memory_format=torch.channels_last)
+                    for k, v in feats.items()}
 
 
 class GeneralizedRCNN(ImageModel):

@@ -40,6 +40,7 @@ from u2seg_torch.ops.roi_align_ml import (multilevel_roi_align_kernel,
                                           multilevel_roi_align_train)
 from u2seg_torch.structures import boxes as box_ops
 from u2seg_torch.structures.instances import Detections, GtInstances
+from u2seg_torch.utils.spans import span
 
 
 class _ScaleGradient(torch.autograd.Function):
@@ -375,8 +376,9 @@ class StandardROIHeads(nn.Module):
         """-> (pred_boxes (B, K, 4 | 4C), class probabilities (B, K, C+1))."""
         c = self.cfg
         b, k, _ = rpn_boxes.shape
-        scores, deltas = self._run_box(self.box_head, self.box_predictor,
-                                       features, rpn_boxes)
+        with span("u2s.roi_heads.stage0"):
+            scores, deltas = self._run_box(self.box_head, self.box_predictor,
+                                           features, rpn_boxes)
         probs = torch.softmax(scores, dim=-1).reshape(b, k, -1)
         pred = box_ops.apply_deltas(deltas.reshape(b, k, -1), rpn_boxes,
                                     c.bbox_reg_weights)
@@ -480,33 +482,36 @@ class StandardROIHeads(nn.Module):
         """The mask and keypoint losses on the first stage's samples."""
         c = self.cfg
         out = {}
-        if c.mask_on and gt.masks is not None:
-            out.update(self._mask_loss(features, proposals, gt))
-        if c.keypoint_on and gt.keypoints is not None:
-            out.update(self._keypoint_loss(features, proposals, gt))
+        with span("u2s.roi_heads.mask"):
+            if c.mask_on and gt.masks is not None:
+                out.update(self._mask_loss(features, proposals, gt))
+            if c.keypoint_on and gt.keypoints is not None:
+                out.update(self._keypoint_loss(features, proposals, gt))
         return out
 
     def _sample(self, rpn_boxes, rpn_scores, rpn_valid, gt, iou, generator):
         c = self.cfg
-        boxes, _, valid = add_ground_truth_to_proposals(
-            rpn_boxes, rpn_scores, rpn_valid, gt)
-        return label_and_sample_proposals(
-            boxes, valid, gt, iou, c.batch_size_per_image, c.positive_fraction,
-            c.num_classes, generator)
+        with span("u2s.roi_heads.sample"):
+            boxes, _, valid = add_ground_truth_to_proposals(
+                rpn_boxes, rpn_scores, rpn_valid, gt)
+            return label_and_sample_proposals(
+                boxes, valid, gt, iou, c.batch_size_per_image, c.positive_fraction,
+                c.num_classes, generator)
 
     def losses(self, features, rpn_boxes, rpn_scores, rpn_valid, image_sizes,
                gt: GtInstances, generator=None) -> Dict[str, torch.Tensor]:
         c = self.cfg
         proposals = self._sample(rpn_boxes, rpn_scores, rpn_valid, gt,
                                  c.iou_thresholds[0], generator)
-        pooled = self._pool(features, proposals.boxes,
-                            c.box_head.pooler_resolution,
-                            c.box_head.pooler_sampling_ratio, train=True)
-        scores, deltas = self.box_predictor(
-            self.box_head(pooled.to(self.compute_dtype)))
-        out = self._box_losses(scores, deltas, proposals,
-                               _take(gt.boxes, proposals.gt_idx),
-                               c.bbox_reg_weights)
+        with span("u2s.roi_heads.stage0"):
+            pooled = self._pool(features, proposals.boxes,
+                                c.box_head.pooler_resolution,
+                                c.box_head.pooler_sampling_ratio, train=True)
+            scores, deltas = self.box_predictor(
+                self.box_head(pooled.to(self.compute_dtype)))
+            out = self._box_losses(scores, deltas, proposals,
+                                   _take(gt.boxes, proposals.gt_idx),
+                                   c.bbox_reg_weights)
         out.update(self._extra_losses(features, proposals, gt))
         return out
 
@@ -524,7 +529,8 @@ class StandardROIHeads(nn.Module):
             pred_boxes, probs, rpn_valid, image_sizes, c.score_thresh_test,
             c.nms_thresh_test, c.detections_per_image)
         if c.mask_on:
-            det = self._mask_inference(features, det)
+            with span("u2s.roi_heads.mask"):
+                det = self._mask_inference(features, det)
         if c.keypoint_on:
             det = self._keypoint_inference(features, det)
         return det
@@ -558,21 +564,22 @@ class CascadeROIHeads(StandardROIHeads):
         out: Dict[str, torch.Tensor] = {}
         cur = proposals
         for stage in range(num_stages):
-            if stage > 0:
-                cls, gidx, fg = match_and_label_boxes(
-                    boxes, valid, gt, c.cascade_ious[stage], c.num_classes)
-                cur = SampledProposals(boxes, valid, fg, cls, gidx)
-            pooled = self._pool(features, boxes, c.box_head.pooler_resolution,
-                                c.box_head.pooler_sampling_ratio, train=True)
-            pooled = scale_gradient(pooled, 1.0 / num_stages)
-            scores, deltas = self.box_predictor[stage](
-                self.box_head[stage](pooled.to(self.compute_dtype)))
-            stage_losses = self._box_losses(
-                scores, deltas, cur, _take(gt.boxes, cur.gt_idx),
-                c.cascade_bbox_reg_weights[stage])
-            out.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
-            if stage < num_stages - 1:
-                boxes = self._refine(deltas, boxes, stage, image_sizes)
+            with span(f"u2s.roi_heads.stage{stage}"):
+                if stage > 0:
+                    cls, gidx, fg = match_and_label_boxes(
+                        boxes, valid, gt, c.cascade_ious[stage], c.num_classes)
+                    cur = SampledProposals(boxes, valid, fg, cls, gidx)
+                pooled = self._pool(features, boxes, c.box_head.pooler_resolution,
+                                    c.box_head.pooler_sampling_ratio, train=True)
+                pooled = scale_gradient(pooled, 1.0 / num_stages)
+                scores, deltas = self.box_predictor[stage](
+                    self.box_head[stage](pooled.to(self.compute_dtype)))
+                stage_losses = self._box_losses(
+                    scores, deltas, cur, _take(gt.boxes, cur.gt_idx),
+                    c.cascade_bbox_reg_weights[stage])
+                out.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
+                if stage < num_stages - 1:
+                    boxes = self._refine(deltas, boxes, stage, image_sizes)
         out.update(self._extra_losses(features, proposals, gt))
         return out
 
@@ -584,12 +591,13 @@ class CascadeROIHeads(StandardROIHeads):
         probs = []
         deltas = None
         for stage in range(num_stages):
-            scores, deltas = self._run_box(self.box_head[stage],
-                                           self.box_predictor[stage],
-                                           features, boxes)
-            probs.append(torch.softmax(scores, dim=-1).reshape(b, k, -1))
-            if stage < num_stages - 1:
-                boxes = self._refine(deltas, boxes, stage, image_sizes)
+            with span(f"u2s.roi_heads.stage{stage}"):
+                scores, deltas = self._run_box(self.box_head[stage],
+                                               self.box_predictor[stage],
+                                               features, boxes)
+                probs.append(torch.softmax(scores, dim=-1).reshape(b, k, -1))
+                if stage < num_stages - 1:
+                    boxes = self._refine(deltas, boxes, stage, image_sizes)
         # averaged stage scores, summed in stage order as the JAX package does
         avg = probs[0]
         for p in probs[1:]:

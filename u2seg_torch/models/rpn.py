@@ -25,6 +25,7 @@ from u2seg_torch.ops import losses as L
 from u2seg_torch.ops.nms import nms, topk_stable
 from u2seg_torch.structures import boxes as box_ops
 from u2seg_torch.structures.instances import GtInstances
+from u2seg_torch.utils.spans import span
 
 
 class RPNHead(nn.Module):
@@ -70,6 +71,10 @@ class RPN(nn.Module):
         """With ``train`` and ``gt``: also the two RPN losses (anchor
         sampling draws from ``generator``), the train top-k sizes, and
         proposals that carry no gradient."""
+        with span("u2s.rpn"):
+            return self._forward(features, image_sizes, gt, train, generator)
+
+    def _forward(self, features, image_sizes, gt, train, generator) -> RPNOutput:
         c = self.cfg
         feats = [features[f] for f in c.in_features]
         logits_nchw, deltas_nchw = self.rpn_head(feats)
@@ -150,7 +155,8 @@ class RPN(nn.Module):
         stk_b = box_ops.clip(stk_b, image_sizes[None])
         ok = box_ops.nonempty(stk_b, threshold=c.min_size)
         stk_s = torch.where(ok, stk_s, torch.full_like(stk_s, ninf))
-        kidx, kvalid = nms(stk_b, stk_s, c.nms_thresh, cap)    # (L, B, cap)
+        with span("u2s.rpn.nms"):
+            kidx, kvalid = nms(stk_b, stk_s, c.nms_thresh, cap)  # (L, B, cap)
         kidx = kidx.long()
         kept_b = torch.gather(stk_b, 2, kidx[..., None].expand(-1, -1, -1, 4))
         kept_b = torch.where(kvalid[..., None], kept_b, torch.zeros_like(kept_b))

@@ -16,6 +16,7 @@ from torch import nn
 
 from u2seg_torch.config import SolverConfig
 from u2seg_torch.ops.norms import BatchNorm2d, GroupNorm
+from u2seg_torch.utils.spans import span
 
 
 def multistep_schedule(base_lr: float, steps, gamma: float, warmup_iters: int,
@@ -116,7 +117,8 @@ class ScheduledSGD(torch.optim.SGD):
 
     @torch.no_grad()
     def step(self, closure=None):
-        self.clip_gradients()
+        with span("u2s.optimizer.clip"):
+            self.clip_gradients()
         for g in self.param_groups:
             g["lr"] = self.schedule(g["count"]) * g["lr_factor"]
             g["count"] += 1
