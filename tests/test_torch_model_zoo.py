@@ -94,11 +94,13 @@ def test_get_trained_loads_the_configs_weights(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The engine serves and trains PanopticFPN only, as in the JAX package; the
-# port says so where the JAX package fails later or trains the wrong model
+# The engine serves PanopticFPN only, as in the JAX package, and trains
+# PanopticFPN and GeneralizedRCNN; the port says so where the JAX package
+# fails later or trains the wrong model
 # ---------------------------------------------------------------------------
 
 MASK_RCNN = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+RETINANET = "COCO-Detection/retinanet_R_50_FPN_1x.yaml"
 
 
 def test_the_trainer_refuses_a_detector_config(tmp_path):
@@ -106,15 +108,15 @@ def test_the_trainer_refuses_a_detector_config(tmp_path):
     from u2seg_torch.engine.trainer import create_train_state
     from u2seg_torch.tools import train_net
 
-    cfg = model_zoo.get_config(MASK_RCNN)
-    msg = "'GeneralizedRCNN' does not train through the trainer: only PanopticFPN"
+    cfg = model_zoo.get_config(RETINANET)
+    msg = "'RetinaNet' does not train through the trainer: only PanopticFPN and GeneralizedRCNN"
     with pytest.raises(ValueError, match=msg):
         create_train_state(cfg, device="cpu")
     with pytest.raises(ValueError, match=msg):
         DefaultTrainer(cfg, [], device="cpu")
     # before it reads any data (the YAML's COCO sets are not on disk)
     with pytest.raises(ValueError, match=msg):
-        train_net.main(["--config-file", model_zoo.get_config_file(MASK_RCNN),
+        train_net.main(["--config-file", model_zoo.get_config_file(RETINANET),
                         "--device", "cpu", f"output_dir={tmp_path}"])
 
 

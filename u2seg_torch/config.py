@@ -49,6 +49,22 @@ class BackboneConfig:
     vit_num_heads: int = 12
     vit_window_size: int = 14
     vit_global_blocks: Tuple[int, ...] = (2, 5, 8, 11)
+    # detectron2's decomposed relative positions (``add_decomposed_rel_pos``):
+    # tables of (2 * window - 1, head dim) in windowed blocks and (2 * grid -
+    # 1, head dim) in global ones. Off: no relative term, as the JAX module
+    vit_use_rel_pos: bool = False
+    # stochastic depth: block i drops each residual branch of a sample with
+    # probability linspace(0, rate, depth)[i] in training, drawn from the
+    # step's generator. 0: none, as the JAX module
+    vit_drop_path_rate: float = 0.0
+    # the trunk and the pyramid compute in ``model.compute_dtype`` (products
+    # in it; norm statistics, softmax and the residual stream in f32; the
+    # levels leave in it). Off: f32 whatever the compute dtype, as the JAX
+    # package builds them
+    vit_in_compute_dtype: bool = False
+    # attention through ``F.scaled_dot_product_attention`` (the relative
+    # positions as its ``attn_mask``). Off: plain ``q @ k^T``, softmax, ``@ v``
+    vit_sdpa: bool = False
     # Swin-T / MViTv2-T trunks
     embed_dim: int = 96
     depths: Tuple[int, ...] = (2, 2, 6, 2)
@@ -95,6 +111,10 @@ class RPNConfig:
     nms_thresh: float = 0.65
     min_size: float = 0.0
     boundary_thresh: float = -1.0
+    # the head's 3x3 convs before its two predictors, each with a relu
+    # (detectron2's ``RPN.HEAD.CONV_DIMS``; -1: the input's channels). One:
+    # ``rpn_head.conv``; more: ``rpn_head.conv.conv0``, ``.conv1``, ...
+    head_conv_dims: Tuple[int, ...] = (-1,)
 
 
 @dataclass
@@ -310,6 +330,18 @@ class SolverConfig:
     weight_decay_bias: Optional[float] = None   # None -> weight_decay
     nesterov: bool = False
     scheduler: str = "WarmupMultiStepLR"
+    # "SGD" (momentum, L2 decay added to the gradient) or "AdamW" (decoupled
+    # decay; no momentum or nesterov), both on the same schedule and groups
+    optimizer: str = "SGD"
+    # ViT layer-wise lr decay (detectron2's ``get_vit_lr_decay_rate``): a
+    # parameter's lr is scaled by rate ** (layers + 1 - layer_id), layers the
+    # ViT trunk's depth, layer_id 0 for its patch_embed and pos_embed, i + 1
+    # for ``blocks.i``, layers + 1 elsewhere. Rate 1.0: no decay
+    vit_lr_decay_rate: float = 1.0
+    # parameters whose own name (the last part of the dotted name) is one of
+    # these take no weight decay (detectron2's optimizer ``overrides``;
+    # ViTDet: pos_embed)
+    no_weight_decay: Tuple[str, ...] = ()
 
 
 @dataclass
@@ -371,6 +403,16 @@ class Config:
     output_dir: str = "./output"
     seed: int = -1
     version: int = 1
+
+
+# the fields that the JAX package's Config lacks, as dotted paths: at their
+# defaults the port computes what the JAX package computes
+PORT_FIELDS = (
+    "model.backbone.vit_use_rel_pos", "model.backbone.vit_drop_path_rate",
+    "model.backbone.vit_in_compute_dtype", "model.backbone.vit_sdpa",
+    "model.rpn.head_conv_dims", "solver.optimizer", "solver.vit_lr_decay_rate",
+    "solver.no_weight_decay",
+)
 
 
 # ---------------------------------------------------------------------------

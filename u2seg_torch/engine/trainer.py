@@ -56,22 +56,26 @@ class TrainState:
         return self.optimizer.param_groups[0]["count"]
 
 
+# the meta-architectures that train through the trainer: PanopticFPN, as in
+# the JAX package (whose ``create_train_state`` builds a PanopticFPN whatever
+# the config names), and GeneralizedRCNN (Faster, Mask and Cascade R-CNN),
+# which the JAX package does not train: the step feeds it no ``sem_seg_gt``
+TRAINABLE = ("PanopticFPN", "GeneralizedRCNN")
+
+
 def check_trainable(cfg: Config) -> None:
-    """Only PanopticFPN trains through the trainer, as in the JAX package
-    (whose ``create_train_state`` builds a PanopticFPN whatever the config
-    names): the step feeds it ``sem_seg_gt``, which the other
-    meta-architectures do not take."""
+    """Raises for a meta-architecture that the trainer cannot train."""
     name = cfg.model.meta_architecture
-    if name != "PanopticFPN":
+    if name not in TRAINABLE:
         raise ValueError(
             f"meta architecture {name!r} does not train through the trainer: "
-            "only PanopticFPN does, as in the JAX package")
+            "only PanopticFPN and GeneralizedRCNN do")
 
 
 def create_train_state(cfg: Config, device=None, seed: int = 0) -> TrainState:
     """Seeded model in training mode on ``device`` (``cuda`` unless the caller
     names another) and its optimizer. Raises ``ValueError`` for a
-    meta-architecture other than PanopticFPN (``check_trainable``)."""
+    meta-architecture the trainer cannot train (``check_trainable``)."""
     check_trainable(cfg)
     model = build_model(cfg, device=device, seed=seed).train()
     return TrainState(model, build_optimizer(cfg.solver, model))
@@ -104,14 +108,15 @@ def make_train_step(
     world = mesh.world_size if mesh is not None else 1
     params = [p for p in model.parameters() if p.requires_grad]
     stats = bn_running_stats(model)
+    panoptic = isinstance(model, PanopticFPN)
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None):
         with span("u2s.forward"):
             model.train()
             optimizer.zero_grad(set_to_none=True)
+            extra = {"sem_seg_gt": batch.sem_seg} if panoptic else {}
             losses = model(batch.images, batch.image_sizes, gt=batch.gt,
-                           sem_seg_gt=batch.sem_seg, train=True,
-                           generator=generator)
+                           train=True, generator=generator, **extra)
             total = sum(losses.values())
         with span("u2s.backward"):
             total.backward()

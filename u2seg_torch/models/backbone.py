@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
 from torch import nn
 
 from u2seg_torch.config import ModelConfig
@@ -49,9 +50,12 @@ def _vitdet(c: ModelConfig, input_hw=None) -> nn.Module:
         raise ValueError("ViTDet: pos_embed is made for one input size; pass input_hw")
     # the token grid of flax's SAME patch conv
     grid = tuple(-(-s // b.vit_patch_size) for s in input_hw)
+    dtype = getattr(torch, c.compute_dtype) if b.vit_in_compute_dtype else torch.float32
     trunk = ViT(grid, patch_size=b.vit_patch_size,
                 dim=b.vit_dim, depth=b.vit_depth, num_heads=b.vit_num_heads,
-                window_size=b.vit_window_size, global_blocks=tuple(b.vit_global_blocks))
+                window_size=b.vit_window_size, global_blocks=tuple(b.vit_global_blocks),
+                rel_pos=b.vit_use_rel_pos, drop_path_rate=b.vit_drop_path_rate,
+                sdpa=b.vit_sdpa, dtype=dtype)
     return ViTDet(trunk, out_channels=c.fpn.out_channels)
 
 

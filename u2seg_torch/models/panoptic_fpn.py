@@ -59,8 +59,8 @@ class PanopticFPN(GeneralizedRCNN):
                generator=None):
         """The train forward -> {loss name: scalar}; fg/bg sampling draws
         from ``generator``."""
-        return self.losses_from_features(self.features(images), image_sizes, gt,
-                                         sem_seg_gt, generator)
+        return self.losses_from_features(self.features(images, generator), image_sizes,
+                                         gt, sem_seg_gt, generator)
 
     def losses_from_features(self, features, image_sizes, gt: GtInstances,
                              sem_seg_gt, generator=None):

@@ -59,9 +59,14 @@ class ImageModel(nn.Module):
         x = ((images - mean) / std).to(self.compute_dtype)
         return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
-    def features(self, images: torch.Tensor):
+    def features(self, images: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """The backbone's maps; a backbone that draws in training
+        (``takes_generator``: ViTDet's stochastic depth) draws from
+        ``generator``."""
         with span("u2s.backbone"):
-            feats = self.backbone(self.normalize(images))
+            x = self.normalize(images)
+            feats = (self.backbone(x, generator) if getattr(self.backbone, "takes_generator", False)
+                     else self.backbone(x))
             return {k: v.contiguous(memory_format=torch.channels_last)
                     for k, v in feats.items()}
 
@@ -83,8 +88,8 @@ class GeneralizedRCNN(ImageModel):
                 generator: Optional[torch.Generator] = None):
         check_mode(self, train)
         if train:
-            return self.losses_from_features(self.features(images), image_sizes,
-                                             gt, generator)
+            return self.losses_from_features(self.features(images, generator),
+                                             image_sizes, gt, generator)
         with torch.no_grad():
             features = self.features(images)
             rpn = self.proposal_generator(features, image_sizes)

@@ -29,20 +29,34 @@ from u2seg_torch.utils.spans import span
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + relu -> (objectness, anchor deltas) 1x1 convs, in
-    ``dtype`` (None: the levels' own)."""
+    """Shared 3x3 conv(s) + relu -> (objectness, anchor deltas) 1x1 convs, in
+    ``dtype`` (None: the levels' own). ``conv_dims`` as detectron2's
+    ``StandardRPNHead`` takes them (-1: the input's channels): one conv is
+    ``conv``, several are ``conv.conv0``, ``conv.conv1``, ... each with its
+    relu."""
 
-    def __init__(self, in_channels: int, num_anchors: int, dtype=None):
+    def __init__(self, in_channels: int, num_anchors: int, dtype=None,
+                 conv_dims=(-1,)):
         super().__init__()
         self.dtype = dtype
-        self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
-        self.objectness_logits = Conv2d(in_channels, num_anchors, 1)
-        self.anchor_deltas = Conv2d(in_channels, num_anchors * 4, 1)
+        if len(conv_dims) == 1:
+            ch = in_channels if conv_dims[0] == -1 else conv_dims[0]
+            self.conv = Conv2d(in_channels, ch, 3, padding=1, activation=F.relu)
+        else:
+            self.conv = nn.Sequential()
+            ch = in_channels
+            for k, dim in enumerate(conv_dims):
+                out = ch if dim == -1 else dim
+                self.conv.add_module(f"conv{k}", Conv2d(ch, out, 3, padding=1,
+                                                        activation=F.relu))
+                ch = out
+        self.objectness_logits = Conv2d(ch, num_anchors, 1)
+        self.anchor_deltas = Conv2d(ch, num_anchors * 4, 1)
 
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []
         for x in features:
-            t = F.relu(self.conv(x if self.dtype is None else x.to(self.dtype)))
+            t = self.conv(x if self.dtype is None else x.to(self.dtype))
             logits.append(self.objectness_logits(t))
             deltas.append(self.anchor_deltas(t))
         return logits, deltas
@@ -62,7 +76,8 @@ class RPN(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.anchor_cfg = anchor_cfg
-        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios), dtype)
+        self.rpn_head = RPNHead(in_channels, len(anchor_cfg.aspect_ratios), dtype,
+                                tuple(cfg.head_conv_dims))
 
     def forward(self, features: Dict[str, torch.Tensor],
                 image_sizes: torch.Tensor, gt: Optional[GtInstances] = None,

@@ -25,6 +25,9 @@ Counterpart of ``u2seg_tpu/ops/norms.py``:
 - ``GroupNorm``: flax's formula: f32 statistics with the fast variance
   ``E[x^2] - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) *
   weight) + bias``, result cast to the activation dtype.
+- ``LayerNorm2d`` ("LN"): detectron2's ``LayerNorm`` of an NCHW map, over
+  its channels at each pixel (eps 1e-6), computed in f32 and cast to the
+  activation dtype. ViTDet's pyramid and its LN box and mask heads use it.
 """
 from __future__ import annotations
 
@@ -110,6 +113,16 @@ class GroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map (see the module doc)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.nn.functional.layer_norm(x.permute(0, 2, 3, 1).float(),
+                                           self.normalized_shape, self.weight,
+                                           self.bias, self.eps)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
+
+
 def get_norm(norm: Optional[str], features: int) -> Optional[nn.Module]:
     """Norm factory mirroring the JAX package's ``get_norm``."""
     if not norm:
@@ -126,4 +139,6 @@ def get_norm(norm: Optional[str], features: int) -> Optional[nn.Module]:
     if norm == "GN":
         groups = 32 if features % 32 == 0 else math.gcd(32, features)
         return GroupNorm(max(groups, 1), features, eps=1e-5)
+    if norm == "LN":
+        return LayerNorm2d(features, eps=1e-6)
     raise ValueError(f"Unknown norm: {norm}")

@@ -78,8 +78,11 @@ def _fans(weight: torch.Tensor, transposed: bool = False):
 # the transformer trunks (ViT, Swin, MViT) and ViTDet's pyramid: flax's
 # default initializer (lecun normal) for their Dense, patch and transposed
 # convs, normal(0.02) for ``pos_embed`` and the relative position tables
+# (ViTDet's decomposed ones too: detectron2 starts them at zero under MAE
+# weights that hold none, which on seeded weights would leave the bias at
+# zero)
 _TRANSFORMER_TRUNKS = ("backbone.net.", "backbone.bottom_up.")
-_TABLES = ("pos_embed", "relative_position_bias_table")
+_TABLES = ("pos_embed", "relative_position_bias_table", "rel_pos_h", "rel_pos_w")
 
 
 def _lecun(name: str, mod: nn.Module) -> bool:
