@@ -38,6 +38,7 @@ if ROOT not in sys.path:
 from portbench import devtrace, harness, spantrace  # noqa: E402
 from portbench.record import Record  # noqa: E402
 from u2seg_torch import config as tconfig  # noqa: E402
+from u2seg_torch.data.loader import COUNTS as loader_counts  # noqa: E402
 from u2seg_torch.engine import hooks as hooks_lib  # noqa: E402
 from u2seg_torch.engine.train_loop import DefaultTrainer  # noqa: E402
 from u2seg_torch.testing import fake_loader  # noqa: E402
@@ -162,6 +163,8 @@ def test_training_steps_record_the_span_tree(tmp_path, threads):
     ranges = host_ranges(p)
     steps = [r for r in ranges if r[0] == "u2s.step"]
     assert [r[3] for r in steps] == [[0], [1]]
+    # the batches come from a generator: the train loaders' counts stand still
+    assert [r[3] for r in ranges if r[0] == "u2s.data"] == [list(loader_counts.args())] * 2
     for lo, hi in [(s, e) for _, s, e, _ in steps]:
         inside = [r for r in ranges if lo <= r[1] and r[2] <= hi and r[0] != "u2s.step"]
         names = [r[0] for r in inside]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from u2seg_torch.config import Config
+from u2seg_torch.data.loader import COUNTS as loader_counts
 from u2seg_torch.engine import hooks as hooks_lib
 from u2seg_torch.engine.checkpoint import Checkpointer, load_model_weights
 from u2seg_torch.engine.events import CommonMetricPrinter, EventStorage, JSONWriter
@@ -182,7 +183,7 @@ class DefaultTrainer(TrainerBase):
         return next(self._loader)
 
     def run_step(self):
-        with span("u2s.data"):
+        with span("u2s.data", loader_counts.args()):
             raw = self._next_batch_raw()
         with span("u2s.upload"):
             batch = batch_from_numpy(raw)

@@ -19,7 +19,8 @@ and ``DefaultTrainer`` run it::
 
     u2s.step                  before-hooks, run_step, after-hooks (args: iteration)
       u2s.hook.<Hook>         one hook's before_step or after_step
-      u2s.data                the next batch from the loader
+      u2s.data                the next batch from the loader (args: the train loaders'
+                              counts, ``data.loader.COUNTS.args()``)
       u2s.upload              the batch as tensors, on the device
       u2s.forward             training mode, zero_grad, the model's losses, their sum
         u2s.backbone          trunk and FPN
